@@ -1,0 +1,158 @@
+"""Risk-aware day-ahead VCC optimization (paper §III-C, eq. 4).
+
+Per cluster c and hour h, choose flexible-usage deviations delta(c,h) from
+the hourly average tau/24, minimizing
+
+    lambda_e * sum_{c,h} eta(c,h) * [Pow(U_nom) + pi(U_nom) * delta * tau/24]
+  + lambda_p * sum_c  y_c ,                    y_c >= Pow_c(h)  for all h
+
+subject to daily conservation (sum_h delta = 0), power capping, machine
+capacity, campus contracts and delta >= -drop_limit. Projected gradient on
+delta with an exact bisection projection, and dual ascent on the campus
+coupling, assembled from ``core.solver``. The PGD epoch is the fused kernel
+(``kernels.vcc_pgd``). Clusters whose bounds make shaping infeasible get
+VCC = machine capacity.
+
+Port of ``repro.core.vcc`` for the main path (point forecast, telemetry
+off). Every field may carry leading batch axes (the scenario x seed batch);
+``lambda_e`` and ``lambda_p`` then have the batch shape.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import prng, solver
+
+f32 = torch.float32
+
+
+@dataclass(frozen=True)
+class VCCProblem:
+    """Stacked fleetwide problem: (..., n, H) hourly and (..., n) cluster
+    fields, (..., n_dc) campus limits, per-rollout prices of shape (...)."""
+    eta: torch.Tensor           # (..., n, H) carbon intensity forecast
+    u_if: torch.Tensor          # (..., n, H) predicted inflexible CPU
+    u_if_q: torch.Tensor        # (..., n, H) (1-gamma) quantile of it
+    tau: torch.Tensor           # (..., n) risk-aware daily flexible CPU
+    pow_nom: torch.Tensor       # (..., n, H) power at nominal usage
+    pi: torch.Tensor            # (..., n, H) power slope at nominal usage
+    u_pow_cap: torch.Tensor     # (..., n) power-capping CPU threshold
+    capacity: torch.Tensor      # (..., n) machine capacity
+    ratio: torch.Tensor         # (..., n, H) reservations-to-usage ratio
+    campus: torch.Tensor        # (..., n) int64 campus id
+    campus_limit: torch.Tensor  # (..., n_dc) power limits (kW)
+    lambda_e: torch.Tensor      # (...) $ / kg CO2e
+    lambda_p: torch.Tensor      # (...) $ / kW / day
+    drop_limit: float = 0.8
+
+    def to(self, device) -> "VCCProblem":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+@dataclass
+class VCCSolution:
+    delta: torch.Tensor         # (..., n, H)
+    y: torch.Tensor             # (..., n) peak power
+    vcc: torch.Tensor           # (..., n, H) hourly reservation capacity
+    shaped: torch.Tensor        # (..., n) bool: cluster actively shaped
+    mu: torch.Tensor            # (..., n_dc) campus duals
+    objective: torch.Tensor     # (...)
+
+
+def delta_bounds(p: VCCProblem):
+    """Per (c, h) bounds on delta + feasibility mask."""
+    tau24 = torch.clamp(p.tau[..., None] / 24.0, min=1e-9)
+    ub_pow = (p.u_pow_cap[..., None] - p.u_if_q) / tau24 - 1.0
+    ub_cap = (p.capacity[..., None] / p.ratio - p.u_if) / tau24 - 1.0
+    ub = torch.minimum(ub_pow, ub_cap)
+    lo = torch.full_like(ub, -p.drop_limit)
+    ub = torch.clamp(ub, -p.drop_limit, 24.0)
+    feasible = (ub.sum(-1) >= 0.0) & (p.tau > 1e-6) \
+        & (ub > -p.drop_limit + 1e-9).all(-1)
+    return lo, ub, feasible
+
+
+def cluster_power(p: VCCProblem, delta):
+    """Hourly power under delta (local linearization around nominal)."""
+    return p.pow_nom + p.pi * delta * p.tau[..., None] / 24.0
+
+
+def objective(p: VCCProblem, delta, mu):
+    """Eq. 4 day cost of ``delta`` at campus duals ``mu``: shape (...)."""
+    pow_h = cluster_power(p, delta)
+    y = pow_h.amax(-1)
+    carbon = p.lambda_e * (p.eta * pow_h).sum(dim=(-2, -1))
+    peak_price = p.lambda_p[..., None] + torch.gather(mu, -1, p.campus)
+    return carbon + (peak_price * y).sum(-1)
+
+
+def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
+              lr: float = 0.5, temp_frac: float = 0.02, rho: float = 0.2,
+              device=None) -> VCCSolution:
+    """Solve the fleetwide VCC problem (eq. 4) on ``device`` (default
+    ``"cuda"``; ``"cpu"`` runs the plain epoch). ``outer_iters`` dual-ascent
+    rounds, each one fused epoch of ``inner_iters`` PGD steps."""
+    p = p.to(_device.resolve(device))
+    lo, ub, feasible = delta_bounds(p)
+    # neutralize infeasible clusters: bounds collapse to {0}
+    lo = torch.where(feasible[..., None], lo, 0.0)
+    ub = torch.where(feasible[..., None], ub, 0.0)
+    temp = solver.peak_temperature(p.pow_nom, temp_frac)
+    lr_eff = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
+
+    def inner(delta, mu):
+        return solver.pgd_epochs(p, delta, mu, lo, ub, lr_eff, temp,
+                                 inner_iters)
+
+    def dual_update(delta, mu):
+        y = cluster_power(p, delta).amax(-1)
+        return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
+                                         rho)
+
+    delta, mu = solver.dual_ascent(inner, dual_update,
+                                   torch.zeros_like(p.eta),
+                                   torch.zeros_like(p.campus_limit),
+                                   outer_iters)
+    y = cluster_power(p, delta).amax(-1)
+    vcc_shaped = (p.u_if + (1.0 + delta) * p.tau[..., None] / 24.0) * p.ratio
+    cap = p.capacity[..., None]
+    vcc = torch.where(feasible[..., None], torch.minimum(vcc_shaped, cap),
+                      cap.expand_as(vcc_shaped))
+    return VCCSolution(delta=delta, y=y, vcc=vcc, shaped=feasible, mu=mu,
+                       objective=objective(p, delta, mu))
+
+
+def synthetic_problem(n: int = 12, seed: int = 7, n_campuses: int = 2,
+                      device=None) -> VCCProblem:
+    """``repro.core.vcc.synthetic_problem``, drawn from the same random
+    stream: a diurnal intensity curve + noisy inflexible load, uncontended
+    campus limits, drop_limit=1.0."""
+    dev = _device.resolve(device)
+    ks = prng.split(prng.PRNGKey(seed, dev), 4)
+    H = 24
+    eta = torch.abs(0.3 + 0.25 * torch.sin(
+        torch.linspace(0, 2 * np.pi, H, device=dev))[None]
+        + 0.05 * prng.normal(ks[0], (n, H)))
+    u_if = 0.4 + 0.05 * prng.normal(ks[1], (n, H))
+    tau = 2.0 + 3.0 * prng.uniform(ks[2], (n,))
+    pow_nom = 500.0 + 20.0 * prng.normal(ks[3], (n, H))
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=f32, device=dev)
+
+    return VCCProblem(
+        eta=eta, u_if=u_if, u_if_q=u_if * 1.1, tau=tau, pow_nom=pow_nom,
+        pi=full((n, H), 300.0), u_pow_cap=full((n,), 0.95),
+        capacity=full((n,), 1.3), ratio=full((n, H), 1.3),
+        campus=torch.arange(n, device=dev) % n_campuses,
+        campus_limit=full((n_campuses,), 1e9),
+        lambda_e=torch.tensor(0.1, device=dev),
+        lambda_p=torch.tensor(0.05, device=dev), drop_limit=1.0)

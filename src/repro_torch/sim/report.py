@@ -1,0 +1,64 @@
+"""Reduce batched rollouts into per-scenario summary tables (port of
+``repro.sim.report``: ``scenario_rows`` and ``format_table``).
+
+Input: a batched Ledger whose leading axis is scenario-major x seed-minor
+(the layout ``scenarios.build_batch`` produces).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.sim.ledger import Ledger, summarize
+
+COLUMNS = ("carbon_saved_pct", "peak_reduction_pct", "flex_within_24h_pct",
+           "kwh_saved_pct", "delayed_cpu_h_per_day")
+
+
+def scenario_rows(ledgers: Ledger, scenario_names: Sequence[str],
+                  n_seeds: int, horizon_days: Optional[int] = None,
+                  initial_backlog=None) -> List[Dict[str, float]]:
+    """Per-scenario mean +/- std (over seeds, ddof=1) of the ledger
+    summaries. ``initial_backlog``: (B,) fleet-total queue at rollout
+    start."""
+    summaries = summarize(ledgers, 0.0 if initial_backlog is None
+                          else initial_backlog)
+    summaries = {k: v.detach().cpu().double().numpy()
+                 for k, v in summaries.items()}
+    rows = []
+    for i, name in enumerate(scenario_names):
+        sl = slice(i * n_seeds, (i + 1) * n_seeds)
+        row: Dict[str, float] = {"scenario": name, "n_seeds": n_seeds}
+        if horizon_days is not None:
+            row["horizon_days"] = int(horizon_days)
+        for k, v in summaries.items():
+            vals = np.asarray(v[sl], dtype=np.float64)
+            row[k] = float(vals.mean())
+            row[k + "_std"] = float(vals.std(ddof=1)) if n_seeds > 1 else 0.0
+        rows.append(row)
+    return rows
+
+
+def format_table(rows: List[Dict[str, float]],
+                 columns: Sequence[str] = COLUMNS) -> str:
+    """Fixed-width ASCII table: one line per scenario."""
+    name_w = max([len("scenario")] + [len(r["scenario"]) for r in rows]) + 2
+    headers = {"carbon_saved_pct": "carbonSaved%",
+               "peak_reduction_pct": "peakRed%",
+               "flex_within_24h_pct": "flex<24h%",
+               "flex_completion_pct": "flexDone%",
+               "kwh_saved_pct": "kwhSaved%",
+               "delayed_cpu_h_per_day": "delayedCPUh/d"}
+    cols = [headers.get(c, c) for c in columns]
+    widths = [max(len(c), 12) for c in cols]
+    out = ["scenario".ljust(name_w)
+           + "  ".join(c.rjust(w) for c, w in zip(cols, widths))]
+    out.append("-" * (name_w + sum(widths) + 2 * (len(cols) - 1)))
+    for r in rows:
+        cells = []
+        for c, w in zip(columns, widths):
+            std = r.get(c + "_std", 0.0)
+            cells.append(f"{r[c]:+.2f}±{std:.2f}".rjust(w))
+        out.append(r["scenario"].ljust(name_w) + "  ".join(cells))
+    return "\n".join(out)

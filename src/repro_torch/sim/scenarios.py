@@ -1,0 +1,207 @@
+"""Declarative scenario perturbations composable onto the synthetic fleet
+(port of ``repro.sim.scenarios``, the default library).
+
+A Scenario = a name + scalar overrides (carbon price, risk, mobility) + a
+tuple of Perturbation objects, each of which edits the numpy multiplier
+schedules (one row per rollout day) that the engine consumes. Composition is
+pure: per-scenario randomness (which clusters an outage hits) is drawn from a
+generator keyed on (seed, crc32(scenario.name)), as in the reference.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import stages
+from repro_torch.sim.engine import SimConfig, SimParams
+
+f32 = torch.float32
+
+
+# ------------------------------------------------------------ perturbations
+
+@dataclass(frozen=True)
+class Perturbation:
+    """Base: edits the schedule dict in place. start/length in rollout
+    days; length < 0 means 'until the end of the horizon'."""
+    start: int = 0
+    length: int = -1
+
+    def window(self, days: int) -> slice:
+        end = days if self.length < 0 else min(self.start + self.length,
+                                               days)
+        return slice(min(self.start, days), end)
+
+    def apply(self, sched: Dict[str, np.ndarray], rng: np.random.Generator,
+              cfg: SimConfig) -> None:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class RenewableDrought(Perturbation):
+    """Dunkelflaute: solar+wind capacity drops by `depth` in some zones."""
+    depth: float = 0.7
+    zones: Optional[Tuple[int, ...]] = None      # None = all zones
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["green_scale"].shape[0])
+        zs = list(self.zones) if self.zones is not None \
+            else list(range(cfg.n_zones))
+        sched["green_scale"][w, zs] *= (1.0 - self.depth)
+
+
+@dataclass(frozen=True)
+class CoalRetirement(Perturbation):
+    """Linear ramp-down of the thermal coal share, `rate` per week."""
+    rate_per_week: float = 0.05
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["coal_scale"].shape[0])
+        t = np.arange(w.stop - w.start, dtype=np.float64)
+        ramp = np.clip(1.0 - self.rate_per_week * t / 7.0, 0.0, None)
+        sched["coal_scale"][w] *= ramp[:, None]
+
+
+@dataclass(frozen=True)
+class ClusterOutage(Perturbation):
+    """A fraction of clusters loses most capacity for a window."""
+    frac: float = 0.25
+    derate: float = 0.1          # remaining capacity fraction
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["cap_scale"].shape[0])
+        k = max(1, int(round(self.frac * cfg.n_clusters)))
+        hit = np.sort(rng.choice(cfg.n_clusters, size=k, replace=False))
+        sched["cap_scale"][w, hit] *= self.derate
+
+
+@dataclass(frozen=True)
+class CampusDerate(Perturbation):
+    """Contracted campus power limit drops (grid event / demand response)."""
+    scale: float = 0.85
+    campuses: Optional[Tuple[int, ...]] = None
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["campus_scale"].shape[0])
+        cs = list(self.campuses) if self.campuses is not None \
+            else list(range(cfg.n_campuses))
+        sched["campus_scale"][w, cs] *= self.scale
+
+
+@dataclass(frozen=True)
+class DemandSurge(Perturbation):
+    """Flexible-demand arrivals scale up fleetwide for a window."""
+    scale: float = 1.5
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["arrival_scale"].shape[0])
+        sched["arrival_scale"][w] *= self.scale
+
+
+# ----------------------------------------------------------------- scenario
+
+@dataclass(frozen=True)
+class Scenario:
+    name: str
+    description: str = ""
+    perturbations: Tuple[Perturbation, ...] = ()
+    lambda_e: float = 0.5        # carbon price
+    lambda_p: float = 0.05
+    gamma: float = 0.05          # power-capping violation probability
+    mobility: float = 0.0        # spatial-shift mobility (0 = paper mode)
+    risk_beta: float = 1.0       # CVaR tail fraction (acts only with K > 1)
+
+
+def _scenario_rng(scenario: Scenario, seed: int) -> np.random.Generator:
+    tag = zlib.crc32(scenario.name.encode("utf-8"))
+    return np.random.default_rng((int(seed) << 32) ^ tag)
+
+
+def build_params(cfg: SimConfig, scenario: Scenario, seed: int, days: int,
+                 device=None) -> SimParams:
+    """Compose a scenario onto the synthetic fleet -> the SimParams of ONE
+    rollout (leaves without the batch axis; ``build_batch`` stacks them)."""
+    dev = _device.resolve(device)
+    n, m, z = cfg.n_clusters, cfg.n_campuses, cfg.n_zones
+    sp = stages.synth_params(seed, n, cfg.pds_per_cluster, z, device=dev)
+    sched = {
+        "green_scale": np.ones((days, z)),
+        "coal_scale": np.ones((days, z)),
+        "cap_scale": np.ones((days, n)),
+        "arrival_scale": np.ones((days, n)),
+        "campus_scale": np.ones((days, m)),
+    }
+    rng = _scenario_rng(scenario, seed)
+    for p in scenario.perturbations:
+        p.apply(sched, rng, cfg)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+    return SimParams(
+        key=sp["key"], truth=sp["truth"], pd_idle=sp["pd_idle"],
+        pd_slope=sp["pd_slope"], pd_curve=sp["pd_curve"], lam=sp["lam"],
+        zone=sp["zone"], lambda_e=t(scenario.lambda_e),
+        lambda_p=t(scenario.lambda_p), gamma=t(scenario.gamma),
+        mobility=t(scenario.mobility), risk_beta=t(scenario.risk_beta),
+        **{k: t(v) for k, v in sched.items()})
+
+
+def build_batch(cfg: SimConfig, scenarios: Sequence[Scenario],
+                seeds: Sequence[int], days: int, device=None) -> SimParams:
+    """Stack (scenario x seed) SimParams along a new leading axis, scenario
+    major: batch index b = i_scenario * len(seeds) + i_seed."""
+    all_params = [build_params(cfg, sc, seed, days, device=device)
+                  for sc in scenarios for seed in seeds]
+    return stages.zip_tensors(torch.stack, all_params)
+
+
+# ------------------------------------------------------------------ library
+
+def default_library(days: int = 14) -> List[Scenario]:
+    """The standing scenario sweep (11 scenarios)."""
+    half = max(days // 2, 1)
+    return [
+        Scenario("baseline",
+                 "nominal grid, nominal fleet"),
+        Scenario("renewable_drought",
+                 "70% solar+wind drop across all zones, second half",
+                 (RenewableDrought(start=half, depth=0.7),)),
+        Scenario("coal_retirement",
+                 "coal share ramps down 10%/week from day 0",
+                 (CoalRetirement(rate_per_week=0.10),)),
+        Scenario("cluster_outage",
+                 "25% of clusters derated to 10% capacity mid-horizon",
+                 (ClusterOutage(start=half, length=max(days // 4, 1),
+                                frac=0.25),)),
+        Scenario("campus_derate",
+                 "all campus power contracts cut 15%",
+                 (CampusDerate(scale=0.85),)),
+        Scenario("demand_surge",
+                 "flexible arrivals x1.6 in the second half",
+                 (DemandSurge(start=half, scale=1.6),)),
+        Scenario("high_carbon_price",
+                 "lambda_e x4: aggressive shaping",
+                 lambda_e=2.0),
+        Scenario("low_risk_tolerance",
+                 "gamma 0.01: conservative power capping",
+                 gamma=0.01),
+        Scenario("spatial_mobility",
+                 "30% of flexible work location-flexible (beyond-paper)",
+                 mobility=0.3),
+        Scenario("peak_shaver",
+                 "peak-power-optimal pricing (lambda_p >> lambda_e): the "
+                 "'War of the Efficiencies' counterpoint",
+                 lambda_e=0.02, lambda_p=0.5),
+        Scenario("perfect_storm",
+                 "drought + outage + surge, compounded",
+                 (RenewableDrought(start=half, depth=0.6),
+                  ClusterOutage(start=half, length=max(days // 4, 1),
+                                frac=0.2),
+                  DemandSurge(start=half, scale=1.4))),
+    ]

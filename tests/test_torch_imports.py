@@ -1,0 +1,48 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not the
+root ``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_sources_found():
+    assert len(SOURCES) >= 20
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_catches_forbidden_imports():
+    src = ("import jax.numpy as jnp\nfrom repro.core import vcc\n"
+           "from repro_torch.core import vcc as ok\nimport repro\n")
+    mods = [m for node in ast.walk(ast.parse(src))
+            for m in ([a.name for a in node.names]
+                      if isinstance(node, ast.Import)
+                      else [node.module] if isinstance(node, ast.ImportFrom)
+                      else [])]
+    assert [m for m in mods if _forbidden(m)] == ["jax.numpy", "repro.core",
+                                                  "repro"]
