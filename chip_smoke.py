@@ -6,21 +6,35 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``nvcc`` compiles every kernel of the port from ``csrc/`` into
-   ``build/`` (one compiler process per source, all started together);
-3. kernels against their plain versions on the card, at iters = 80 and
-   three row counts (ragged, the main path's, fleet scale): max error,
-   conservation residual, bound violations, kernel and plain times (CUDA
-   events, median of 20 after warm-up) and the least time the card could
-   take for the same work;
+2. build: ``nvcc`` compiles the three kernels of the port from ``csrc/``
+   into ``build/`` (one compiler process per source, all started together,
+   with ``-Xptxas -v``: registers and spills);
+3. kernels against their plain versions on the card, at three row counts
+   each (ragged, the path's, fleet scale): the PGD epoch (#1) and the CVaR
+   ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3).
+   Max error, conservation residual, bound violations, kernel and plain
+   times (CUDA events, median of 20 after warm-up; fewer for the slowest
+   plain runs) and the least time the card could take for the same work;
+   and #2 over identical members against #1;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
    day's solution checked; then one more day under ``torch.profiler``
    (device busy share, top ops; full table in chiprun_out/);
-5. the golden configuration on the card (kernel) against the CPU (plain
-   version), within the parity tests' end-to-end tolerances;
-6. one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+5. slice path, the risk-aware joint day: ``SimConfig(joint_spatial=True,
+   n_members=8)`` over ``mobility_sweep_library(7) + risk_sweep_library(7)``
+   x seeds 0-3 (28 rollouts) for 7 days at the same fleet size, with exact
+   launch counts of all three kernels, the same daily checks at the
+   shifted budgets, the rollout-days on which the joint solve kept its
+   joint point, the scenario table and the sweep rows (the mobility
+   rows against the same batch under ``joint_spatial=False``, counted
+   apart), the joint step's time split from the s projection's, and one
+   profiled day;
+6. the golden configuration, and the slice configuration at golden size,
+   on the card (kernels) against the CPU (plain versions), within the
+   parity tests' end-to-end tolerances; at golden size the slice's best-of
+   verdicts must agree on both devices and keep the joint point somewhere;
+7. one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and without the repo's
@@ -42,6 +56,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 KERNEL_TOL = 1e-4                    # max |kernel - plain| on delta
+JOINT_TOL = 1e-5                     # one joint step: d', and x max|g_s|
+IDENTICAL_TOL = 1e-6                 # #2 over identical members vs #1
 ITERS = 80
 # the main path: default_library's 11 scenarios x 4 seeds x 512 clusters
 MAIN_DAYS = 7
@@ -49,6 +65,10 @@ MAIN_SEEDS = (0, 1, 2, 3)
 MAIN_CLUSTERS = 512
 MAIN_ROWS = 11 * len(MAIN_SEEDS) * MAIN_CLUSTERS
 KERNEL_ROWS = (1000, MAIN_ROWS, 131072)  # ragged, main path, fleet scale
+# the slice path: 4 mobility + 3 risk scenarios x 4 seeds x 512 clusters
+SLICE_MEMBERS = 8
+SLICE_ROWS = 7 * len(MAIN_SEEDS) * MAIN_CLUSTERS
+SLICE_KERNEL_ROWS = (1000, SLICE_ROWS, 131072)
 
 
 def smi(query: str) -> str:
@@ -58,14 +78,25 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the current stream."""
+# a ~2 ms spin on the stream ahead of a timed kernel: the host enqueues the
+# launch while the card spins, so the events time the kernel's device work
+# and not the wrapper's Python (which a short kernel would otherwise wait on)
+LEAD_CYCLES = 4_000_000
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 2, lead: bool = False
+            ) -> float:
+    """Median milliseconds of ``fn()`` on the current stream, between two
+    CUDA events; ``lead=True`` puts ``LEAD_CYCLES`` of spin before the
+    start event."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -97,10 +128,10 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
-    builders = {"vcc_pgd_epoch": pgd_kernel.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builders)) as pool:
-        futs = {k: pool.submit(b, verbose=True) for k, b in builders.items()}
+    with ThreadPoolExecutor(len(pgd_kernel.SOURCES)) as pool:
+        futs = {k: pool.submit(pgd_kernel.build, k, verbose=True)
+                for k in pgd_kernel.SOURCES}
         results = {k: f.result() for k, f in futs.items()}
     for k, (path, secs, log) in results.items():
         print(f"[build] {k}: {path.relative_to(ROOT)} in {secs:.2f} s")
@@ -141,13 +172,53 @@ def random_rows(rows: int, seed: int, device, H: int = 24):
     return args, temp.to(device), lambda_e.to(device)
 
 
-def phase_kernels(sms, clock_mhz):
+class Card:
+    """The card's rates for the bounds: FP32 peak (every SM issues 128
+    FP32 lanes a clock, an FMA counting as two operations: 67 TFLOP/s on a
+    132-SM H100 SXM at 1980 MHz), the HBM rate, and one warp shuffle per
+    SM and clock (the issue floor of the one-warp-per-row designs)."""
+
+    def __init__(self, sms, clock_mhz):
+        self.fp32_per_s = sms * 128 * 2 * clock_mhz * 1e6
+        self.shfl_per_s = sms * clock_mhz * 1e6
+
+    def bound(self, flops, nbytes):
+        ops_ms = 1e3 * flops / self.fp32_per_s
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                       else "bytes"), ops_ms, bytes_ms
+
+
+def report(name, rows, err, tol, resid, viol, ms, plain_ms, card, flops,
+           nbytes, shuffles, extra=""):
+    bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes)
+    print(f"[kernel] {name} rows={rows}{extra}: max|kernel-plain|={err:.3e}"
+          f" (limit {tol:g}), conservation max|sum_h d|={resid:.3e}, bound "
+          f"violation {viol:.3e}; kernel {ms:.4f} ms (device), plain "
+          f"{plain_ms:.4f} "
+          f"ms; bound {bound_ms:.4f} ms by {by} (ops {flops:.4g} -> "
+          f"{ops_ms:.4f} ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms); the "
+          f"design's shuffle-issue floor "
+          f"{1e3 * shuffles / card.shfl_per_s:.4f} ms", flush=True)
+    return bound_ms, by
+
+
+def feasible_or_raise(name, rows, d, lo, ub, resid, viol):
+    if not (resid <= 1e-4 * max(ub.abs().max().item(), 1.0)
+            and viol <= 1e-6):
+        raise AssertionError(f"{name} output infeasible at rows={rows}")
+
+
+def conservation(d, lo, ub):
+    resid = d.sum(-1).abs().max().item()
+    viol = torch.clamp(torch.maximum(lo - d, d - ub), min=0.0).max().item()
+    return resid, viol
+
+
+def phase_kernels(card):
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     from repro_torch.kernels.vcc_pgd import ref as pgd_ref
     dev = torch.device("cuda")
-    # FP32 peak: every SM issues 128 FP32 lanes a clock, an FMA counting
-    # as two operations (67 TFLOP/s on a 132-SM H100 SXM at 1980 MHz)
-    fp32_per_s = sms * 128 * 2 * clock_mhz * 1e6
     record = None
     for rows in KERNEL_ROWS:
         args, temp, lame = random_rows(rows, seed=rows, device=dev)
@@ -163,42 +234,215 @@ def phase_kernels(sms, clock_mhz):
         torch.cuda.synchronize()
         lo, ub = args[6], args[7]
         err = (got - want).abs().max().item()
-        resid = got.sum(-1).abs().max().item()
-        viol = torch.clamp(torch.maximum(lo - got, got - ub), min=0.0
-                           ).max().item()
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        flops = pgd_kernel.epoch_flops(rows, 24, ITERS)
-        nbytes = pgd_kernel.epoch_bytes(rows, 24)
-        ops_ms, bytes_ms = 1e3 * flops / fp32_per_s, 1e3 * nbytes / \
-            HBM_BYTES_PER_S
-        bound_ms = max(ops_ms, bytes_ms)
-        # what this one-warp-per-row design issues beyond the arithmetic:
-        # an SM issues one warp shuffle per clock
-        shfl_ms = 1e3 * pgd_kernel.epoch_shuffles(rows, ITERS) / (
-            sms * clock_mhz * 1e6)
-        print(f"[kernel] vcc_pgd_epoch rows={rows}: "
-              f"max|kernel-plain|={err:.3e}"
-              f" (limit {KERNEL_TOL:g}), conservation max|sum_h d|="
-              f"{resid:.3e}, bound violation {viol:.3e}; kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"(ops {flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
-              f"{bytes_ms:.4f} ms); the design's shuffle-issue floor "
-              f"{shfl_ms:.4f} ms", flush=True)
+        resid, viol = conservation(got, lo, ub)
+        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain)
+        bound_ms, by = report(
+            "vcc_pgd_epoch", rows, err, KERNEL_TOL, resid, viol, ms,
+            plain_ms, card, pgd_kernel.epoch_flops(rows, 24, ITERS),
+            pgd_kernel.epoch_bytes(rows, 24),
+            pgd_kernel.epoch_shuffles(rows, ITERS))
         if not err <= KERNEL_TOL:
             raise AssertionError(f"kernel disagrees with plain at rows={rows}")
-        if not (resid <= 1e-4 * max(ub.abs().max().item(), 1.0)
-                and viol <= 1e-6):
-            raise AssertionError(f"kernel output infeasible at rows={rows}")
+        feasible_or_raise("vcc_pgd_epoch", rows, got, lo, ub, resid, viol)
         if rows == MAIN_ROWS:
             record = {"name": "vcc_pgd_epoch", "route": "cuda",
                       "source": "src/repro_torch/kernels/vcc_pgd/csrc/"
                                 "pgd_epoch.cu",
                       "replaces": "src/repro/kernels/vcc_pgd/kernel.py:122",
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms,
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes",
+                      "bound_ms": bound_ms, "bound_by": by,
                       "library_ms": None}
+    return record
+
+
+def random_members(rows, K, seed, device):
+    """A CVaR epoch problem: ``random_rows`` plus K members of intensity
+    (a whole-day profile each) and nominal power (member 0 the point
+    forecast), stacked (B, K, n, H) as the slice path holds them: n = 512
+    clusters a rollout where rows allow it, else one rollout of all rows;
+    and the risk sharpness at beta = 0.5."""
+    args, temp, lame = random_rows(rows, seed, device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    H = args[0].shape[-1]
+    prof = 1 + 0.4 * (torch.rand(K, 1, H, generator=g) - 0.5)
+    prof[0] = 1.0
+    noise = 30 * (torch.rand(K, rows, H, generator=g) - 0.5)
+    noise[0] = 0.0
+    n = MAIN_CLUSTERS if rows % MAIN_CLUSTERS == 0 else rows
+    B = rows // n
+
+    def stack(x):
+        return x.reshape(K, B, n, H).transpose(0, 1).contiguous().to(device)
+
+    eta_e, pow_e = stack(args[1][None] * prof), stack(args[3][None] + noise)
+    risk_s = torch.full((rows, 1), 4.0, device=device)
+    args = [x.to(device) for x in args]
+    return args, eta_e, pow_e, temp.to(device), lame.to(device), risk_s, B
+
+
+def phase_ens_kernel(card):
+    """Kernel #2 against its plain version, at K = 8 (the slice path's) and
+    K = 32 (the most the kernel takes); and over identical members against
+    kernel #1."""
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    dev = torch.device("cuda")
+    record = None
+    for K in (SLICE_MEMBERS, 32):
+        for rows in SLICE_KERNEL_ROWS:
+            args, eta_e, pow_e, temp, lame, risk_s, B = random_members(
+                rows, K, rows + K, dev)
+            d, _, pi, _, tau24, price, lo, ub, lr = args
+
+            def kern():
+                return pgd_kernel.pgd_epoch_ens_cuda(
+                    d, eta_e, pi, pow_e, tau24, price, lo, ub, lr, temp,
+                    lame, risk_s, iters=ITERS)
+
+            def b3(x):
+                return x.reshape(B, rows // B, x.shape[-1])
+
+            def plain():
+                return pgd_ref.pgd_epoch_ens_ref(
+                    b3(d), eta_e, b3(pi), pow_e, b3(tau24), b3(price),
+                    b3(lo), b3(ub), b3(lr), temp=b3(temp),
+                    lambda_e=b3(lame), risk_s=b3(risk_s),
+                    iters=ITERS).reshape(rows, -1)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            resid, viol = conservation(got, lo, ub)
+            ms = cuda_ms(kern, lead=True)
+            plain_ms = cuda_ms(plain, reps=3 if rows > SLICE_ROWS else 10,
+                               warmup=1)
+            bound_ms, by = report(
+                "vcc_pgd_epoch_ens", rows, err, KERNEL_TOL, resid, viol, ms,
+                plain_ms, card,
+                pgd_kernel.ens_epoch_flops(rows, 24, K, ITERS),
+                pgd_kernel.ens_epoch_bytes(rows, 24, K),
+                pgd_kernel.ens_epoch_shuffles(rows, K, ITERS),
+                extra=f" K={K} (B={B})")
+            if not err <= KERNEL_TOL:
+                raise AssertionError(f"ensemble kernel disagrees with plain "
+                                     f"at rows={rows}, K={K}")
+            feasible_or_raise("vcc_pgd_epoch_ens", rows, got, lo, ub, resid,
+                              viol)
+            if rows == SLICE_ROWS and K == SLICE_MEMBERS:
+                record = {"name": "vcc_pgd_epoch_ens", "route": "cuda",
+                          "source": "src/repro_torch/kernels/vcc_pgd/csrc/"
+                                    "pgd_epoch_ens.cu",
+                          "replaces": "src/repro/kernels/vcc_pgd/"
+                                      "kernel.py:251",
+                          "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": by, "library_ms": None}
+            del args, eta_e, pow_e, got, want
+    # identical members collapse to kernel #1 (they share the device code)
+    args, temp, lame = random_rows(SLICE_ROWS, 5, dev)
+    d, eta, pi, pow_nom, tau24, price, lo, ub, lr = args
+    for K in (1, SLICE_MEMBERS, 32):
+        ens = pgd_kernel.pgd_epoch_ens_cuda(
+            d, eta.expand(1, K, -1, -1).contiguous(), pi,
+            pow_nom.expand(1, K, -1, -1).contiguous(), tau24, price, lo, ub, lr,
+            temp, lame, torch.full_like(temp, 4.0), iters=ITERS)
+        one = pgd_kernel.pgd_epoch_cuda(*args, temp, lame, iters=ITERS)
+        torch.cuda.synchronize()
+        gap = (ens - one).abs().max().item()
+        print(f"[kernel] vcc_pgd_epoch_ens over {K} identical members vs "
+              f"vcc_pgd_epoch, rows={SLICE_ROWS}: max gap {gap:.3e} "
+              f"(limit {IDENTICAL_TOL:g}; bitwise: {bool(gap == 0.0)})",
+              flush=True)
+        if not gap <= IDENTICAL_TOL:
+            raise AssertionError(f"identical members ({K}) differ from the "
+                                 f"plain epoch by {gap:.3e}")
+    return record
+
+
+def random_joint(rows, seed, device, H: int = 24):
+    """One joint step's operands: budgets tight enough that some rows are
+    infeasible at tau + s, every fourth row's budget emptied by its
+    shift."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g)
+
+    tau = 1.0 + 4.0 * u(rows, 1)
+    s = tau * (u(rows, 1) - 0.5)
+    s[::4] = -tau[::4]
+    u_if, pi, eta = 0.3 + 0.3 * u(rows, H), 150 + 250 * u(rows, H), \
+        0.1 + 0.6 * u(rows, H)
+    price, lame = 0.05 + 0.5 * u(rows, 1), 0.02 + 2.0 * u(rows, 1)
+    lr = 0.5 / (pi.amax(1, keepdim=True) * tau / 24
+                * (lame * eta.amax(1, keepdim=True) + price))
+    pow_nom = 300 + 400 * u(rows, H)
+    args = [0.3 * (u(rows, H) - 0.5), s, eta, pi, pow_nom, tau, u_if,
+            u_if * 1.1, 1.1 + 0.4 * u(rows, H), 0.75 + 0.25 * u(rows, 1),
+            1.0 + 0.6 * u(rows, 1), price, lr,
+            0.02 * pow_nom.mean(1, keepdim=True), lame]
+    return [x.to(device).contiguous() for x in args]
+
+
+def joint_box(args, drop):
+    """The box of delta at tau + s, as ``core.vcc.delta_bounds`` gives it
+    (infeasible rows collapse to {0})."""
+    _, s, _, _, _, tau, u_if, u_if_q, ratio, upc, cap = args[:11]
+    tau_s = tau + s
+    t24 = torch.clamp(tau_s / 24.0, min=1e-9)
+    ub = torch.clamp(torch.minimum((upc - u_if_q) / t24 - 1.0,
+                                   (cap / ratio - u_if) / t24 - 1.0),
+                     -drop, 24.0)
+    feas = (ub.sum(-1, keepdim=True) >= 0.0) & (tau_s > 1e-6) \
+        & (ub > -drop + 1e-9).all(-1, keepdim=True)
+    return (torch.where(feas, torch.full_like(ub, -drop), 0.0),
+            torch.where(feas, ub, 0.0))
+
+
+def phase_joint_kernel(card, drop=0.8):
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    dev = torch.device("cuda")
+    record = None
+    for rows in SLICE_KERNEL_ROWS:
+        args = random_joint(rows, rows, dev)
+
+        def kern():
+            return pgd_kernel.joint_step_cuda(*args, drop_limit=drop)
+
+        def plain():
+            return pgd_ref.joint_step_arrays(*args, drop_limit=drop)
+
+        (d, g), (wd, wg) = kern(), plain()
+        torch.cuda.synchronize()
+        err = (d - wd).abs().max().item()
+        g_scale = wg.abs().max().item()
+        g_err = (g - wg).abs().max().item()
+        lo, ub = joint_box(args, drop)
+        resid, viol = conservation(d, lo, ub)
+        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain)
+        host_ms = cuda_ms(kern)
+        bound_ms, by = report(
+            "vcc_joint_step", rows, err, JOINT_TOL, resid, viol, ms,
+            plain_ms, card, pgd_kernel.joint_step_flops(rows, 24),
+            pgd_kernel.joint_step_bytes(rows, 24),
+            pgd_kernel.joint_step_shuffles(rows),
+            extra=f" (g_s: max|kernel-plain|={g_err:.3e} of max|g_s| "
+                  f"{g_scale:.3e}; rows with box {{0}}: "
+                  f"{int((ub == 0).all(-1).sum())}; without the spin "
+                  f"ahead, the events see the wrapper: {host_ms:.4f} ms)")
+        if not (err <= JOINT_TOL and g_err <= JOINT_TOL * g_scale):
+            raise AssertionError(f"joint step disagrees with plain at "
+                                 f"rows={rows}")
+        feasible_or_raise("vcc_joint_step", rows, d, lo, ub, resid, viol)
+        if rows == SLICE_ROWS:
+            record = {"name": "vcc_joint_step", "route": "cuda",
+                      "source": "src/repro_torch/kernels/vcc_pgd/csrc/"
+                                "joint_step.cu",
+                      "replaces": "src/repro/kernels/vcc_pgd/kernel.py:207",
+                      "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": by, "library_ms": None}
     return record
 
 
@@ -208,7 +452,8 @@ SOLVE_ROUNDS = 20                    # solve_vcc's dual-ascent rounds a day
 
 
 def check_day(d, out):
-    """Every day's solution conserves and stays within its bounds."""
+    """Every day's solution conserves and stays within its bounds (those
+    of the problem it solved: at the shifted budgets, when they moved)."""
     from repro_torch.core import vcc
     lo, ub, feasible = vcc.delta_bounds(out.prob)
     lo = torch.where(feasible[..., None], lo, 0.0)
@@ -254,13 +499,17 @@ def phase_main_path():
             checks.append(check_day(d, out))
 
     run = sim.rollout_batch(cfg, MAIN_DAYS, device="cuda", on_day=on_day)
-    pgd_kernel.pgd_epoch_cuda.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, ledger, traj = run(params)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = pgd_kernel.pgd_epoch_cuda.launches
+    others = read_counts()[1:]
+    if any(others):
+        raise AssertionError(f"the main path launched the slice kernels "
+                             f"{others} times")
     burn_s, roll_s = marks[-1] - t0, t1 - marks[-1]
     batch = len(scenarios) * len(MAIN_SEEDS)
     print(f"[main] burn-in {burn_s:.3f} s; rollout {roll_s:.3f} s for "
@@ -282,21 +531,37 @@ def phase_main_path():
                              len(MAIN_SEEDS), horizon_days=MAIN_DAYS,
                              initial_backlog=backlog["queue"])
     print(sim.format_table(rows), flush=True)
-    profile_day(cfg, params, state)
+    profile_day(cfg, params, state, "profile_day.txt")
     return launches
 
 
-def profile_day(cfg, params, state):
+def kernel_counters():
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    return (pgd_kernel.pgd_epoch_cuda, pgd_kernel.pgd_epoch_ens_cuda,
+            pgd_kernel.joint_step_cuda)
+
+
+def reset_counts():
+    for k in kernel_counters():
+        k.launches = 0
+
+
+def read_counts():
+    """Launches of kernels #1, #2, #3 since the last reset."""
+    return [k.launches for k in kernel_counters()]
+
+
+def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
     """One more day under torch.profiler, after the counted run: the
     device's busy share of the day's wall time and the ops that take it.
-    The full table goes to chiprun_out/profile_day.txt."""
+    The full table goes to chiprun_out/<fname>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import sim
     from repro_torch.sim import engine
     step = sim.make_day_step(cfg)
-    xs = engine.day_xs(params, MAIN_DAYS - 1)
+    xs = engine.day_xs(params, days - 1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -325,15 +590,198 @@ def profile_day(cfg, params, state):
           + "; ".join(f"{e.key.split('(float')[0][:48]} "
                       f"{self_dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in top), flush=True)
+    ours = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel")
+    for e in kernels:
+        if any(f"::{k}(" in e.key for k in ours):
+            print(f"[profile]   {e.key.split('(float')[0]}: "
+                  f"{self_dev_us(e) / 1e3:.3f} ms device over {e.count} "
+                  f"launches, {self_dev_us(e) / e.count:.2f} us each",
+                  flush=True)
     sort_key = "self_device_time_total" if hasattr(
         top[0], "self_device_time_total") else "self_cuda_time_total"
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_day.txt").write_text(events.table(sort_by=sort_key,
-                                                      row_limit=40))
+    (out / fname).write_text(events.table(sort_by=sort_key, row_limit=40))
+    return wall_ms, busy_ms
 
 
 # ------------------------------------------------------------------ phase 5
+
+JOINT_ROUNDS, JOINT_STEPS = 8, 25     # solve_joint: 8 rounds x 25 steps
+
+
+def slice_config(**kw):
+    from repro_torch import sim
+    base = dict(n_clusters=MAIN_CLUSTERS, n_campuses=64, n_zones=16,
+                pds_per_cluster=2, hist_days=35, joint_spatial=True,
+                n_members=SLICE_MEMBERS)
+    return sim.SimConfig(**{**base, **kw})
+
+
+def slice_scenarios(days):
+    from repro_torch import sim
+    return sim.mobility_sweep_library(days) + sim.risk_sweep_library(days)
+
+
+def kept_days(bests, names, S):
+    """Rollout-days on which the joint solve kept its joint point (the
+    others kept the sequential warm start), in all and per scenario, and
+    how close the calls were; ``bests`` holds one ``spatial.BestOf`` a
+    day, the batch scenario-major."""
+    t = torch.stack([b.take for b in bests], 1).cpu()
+    m = torch.stack([b.margin for b in bests], 1).cpu()
+    per = t.reshape(len(names), S, -1).sum((1, 2))
+    kept = {"all": int(t.sum()), **{n: int(k) for n, k in zip(names, per)}}
+    print(f"[slice] joint point kept on {kept['all']} of {t.numel()} "
+          "rollout-days; per scenario: "
+          + ", ".join(f"{n} {kept[n]}/{S * t.shape[1]}" for n in names)
+          + "; the call's margin (the joint point's smaller relative gain "
+          "in objective and carbon) per scenario, max and median: "
+          + ", ".join(f"{n} {mx:.3e} / {md:.3e}" for n, mx, md in zip(
+              names, m.reshape(len(names), -1).amax(1),
+              m.reshape(len(names), -1).median(1).values)), flush=True)
+    return kept
+
+
+def phase_slice_path():
+    """The risk-aware joint day at full width, on the card."""
+    from repro_torch import sim
+    cfg = slice_config()
+    scenarios = slice_scenarios(MAIN_DAYS)
+    names = [s.name for s in scenarios]
+    n_mob = len(sim.mobility_sweep_library(MAIN_DAYS))
+    S = len(MAIN_SEEDS)
+    t0 = time.perf_counter()
+    params = sim.build_batch(cfg, scenarios, MAIN_SEEDS, MAIN_DAYS)
+    torch.cuda.synchronize()
+    rows = len(scenarios) * S * cfg.n_clusters
+    if rows != SLICE_ROWS:
+        raise AssertionError(f"slice path has {rows} kernel rows, the "
+                             f"kernel phases measured {SLICE_ROWS}")
+    print(f"[slice] joint_spatial=True, n_members={cfg.n_members}: "
+          f"{len(scenarios)} scenarios ({', '.join(names)}) x {S} seeds, "
+          f"{MAIN_DAYS} days, {cfg.n_clusters} clusters / {cfg.n_campuses} "
+          f"campuses / {cfg.n_zones} zones; kernel rows per launch {rows}; "
+          f"params built in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def drive(c, label):
+        marks, checks, backlog, last, bests = {}, [], {}, {}, []
+
+        def on_day(d, state, out):
+            torch.cuda.synchronize()
+            marks[d] = time.perf_counter()
+            if out is None:
+                backlog["queue"] = state.queue.sum(-1)
+            else:
+                checks.append(check_day(d, out))
+                last["out"] = out
+                if out.best is not None:
+                    bests.append(out.best)
+
+        run = sim.rollout_batch(c, MAIN_DAYS, device="cuda", on_day=on_day)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, ledger, traj = run(params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = read_counts()
+        burn_s, roll_s = marks[-1] - t0, t1 - marks[-1]
+        B = len(scenarios) * S
+        worst = tuple(max(ch[i] for ch in checks) for i in range(2))
+        print(f"[slice] {label}: burn-in {burn_s:.3f} s; rollout "
+              f"{roll_s:.3f} s for {MAIN_DAYS} days "
+              f"({1e3 * roll_s / MAIN_DAYS:.1f} ms a day); "
+              f"{B * MAIN_DAYS / roll_s:.3f} fleet-days/s ({B} fleets of "
+              f"{c.n_clusters} clusters); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches of #1 / #2 / #3: {counts[0]} / {counts[1]} / "
+              f"{counts[2]}; worst daily conservation residual "
+              f"{worst[0]:.3e}, bound violation {worst[1]:.3e}", flush=True)
+        for name, val in list(ledger._asdict().items()) + list(traj.items()):
+            if not torch.isfinite(val).all():
+                raise AssertionError(f"{label}: non-finite values in {name}")
+        return state, ledger, counts, backlog["queue"], roll_s, last["out"], \
+            bests
+
+    state, led_joint, counts, backlog, roll_s, last, bests = drive(
+        cfg, "joint")
+    want = [MAIN_DAYS * SOLVE_ROUNDS, MAIN_DAYS * SOLVE_ROUNDS,
+            MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS]
+    if counts != want:
+        raise AssertionError(f"the slice path launched kernels #1 / #2 / #3 "
+                             f"{counts} times, expected {want}")
+    # printed, not held: the golden-size slice below holds the verdicts
+    # (non-zero and equal on both devices)
+    kept_days(bests, names, S)
+    print(sim.format_table(sim.scenario_rows(
+        led_joint, names, S, horizon_days=MAIN_DAYS,
+        initial_backlog=backlog)), flush=True)
+    _, led_seq, seq_counts, _, _, _, _ = drive(
+        slice_config(joint_spatial=False), "sequential (same batch)")
+    if seq_counts != [0, MAIN_DAYS * SOLVE_ROUNDS, 0]:
+        raise AssertionError(f"the sequential run launched {seq_counts}")
+
+    def sub(led, sl):
+        return type(led)(*(x[sl] for x in led))
+
+    mob = slice(0, n_mob * S)
+    print(sim.format_table(sim.mobility_sweep_rows(
+        sub(led_joint, mob), sub(led_seq, mob), names[:n_mob], S),
+        sim.MOBILITY_COLUMNS), flush=True)
+    print(sim.format_table(sim.risk_sweep_rows(
+        {cfg.n_members: sub(led_joint, slice(n_mob * S, None))},
+        names[n_mob:], S), sim.RISK_COLUMNS), flush=True)
+    split = joint_step_split(last.prob, last.sol, params)
+    wall_ms, busy_ms = profile_day(cfg, params, state,
+                                   "profile_slice_day.txt")
+    print(f"[slice] the s projection: {split['proj_ms']:.3f} ms a step x "
+          f"{JOINT_ROUNDS * JOINT_STEPS} steps = "
+          f"{split['proj_ms'] * JOINT_ROUNDS * JOINT_STEPS:.1f} ms a day, "
+          f"{100 * split['proj_ms'] * JOINT_ROUNDS * JOINT_STEPS / (1e3 * roll_s / MAIN_DAYS):.1f}% "
+          f"of the unprofiled day", flush=True)
+    return counts, roll_s
+
+
+def joint_step_split(prob, sol, params, reps: int = 3):
+    """Host-clock time of the joint refinement's two parts at the slice's
+    shapes, each ended by a synchronize: the fused joint step (kernel #3
+    and the dispatcher's operand layout) and the fleet-coupled projection
+    of s in PyTorch, JOINT_STEPS steps each, best of ``reps``."""
+    import dataclasses
+
+    from repro_torch.core import solver, spatial
+    from repro_torch.kernels.vcc_pgd import ops
+    p = dataclasses.replace(prob, eta_ens=None, pow_nom_ens=None,
+                            risk_beta=None)
+    lo_s, ub_s = spatial.shift_bounds(p, params.mobility)
+    s = torch.zeros_like(p.tau)
+    lr_d = solver.scaled_lr(0.5, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
+    temp = solver.peak_temperature(p.pow_nom, 0.02)
+    g_s = torch.zeros_like(s)
+
+    def timed(fn):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(JOINT_STEPS):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / JOINT_STEPS)
+        return 1e3 * best
+
+    step_ms = timed(lambda: ops.joint_step(p, sol.delta, s, sol.mu, lr_d,
+                                           temp))
+    proj_ms = timed(lambda: solver.project_conservation(
+        s - 0.01 * g_s, lo_s, ub_s))
+    print(f"[slice] joint refinement per step (host clock, synchronized, "
+          f"best of {reps} x {JOINT_STEPS}): fused joint step {step_ms:.3f} "
+          f"ms, s projection {proj_ms:.3f} ms", flush=True)
+    return {"step_ms": step_ms, "proj_ms": proj_ms}
+
+
+# ------------------------------------------------------------------ phase 6
 
 # the golden configuration of tests/test_golden_trace.py and the
 # end-to-end tolerances of tests/test_torch_rollout.py
@@ -343,22 +791,71 @@ RTOL_KEYS = ("carbon_kg", "kwh", "cf_carbon_kg", "cf_kwh", "served",
 ATOL_KEYS = ("delayed_cpu_h", "cf_delayed_cpu_h")
 
 
-def golden_rollout(device):
+def golden_rollout(device, slice_path=False):
+    """The golden configuration; ``slice_path=True`` runs the slice's
+    configuration (joint spatial, 8 members) at golden size over two
+    scenarios of each sweep library instead."""
     from repro_torch import sim
+    kw = dict(joint_spatial=True, n_members=SLICE_MEMBERS) \
+        if slice_path else {}
     cfg = sim.SimConfig(n_clusters=8, n_campuses=2, n_zones=2,
-                        pds_per_cluster=2, hist_days=14)
-    scenarios = [sim.Scenario("baseline", "nominal grid, nominal fleet"),
-                 sim.Scenario("high_carbon_price", "lambda_e x4",
-                              lambda_e=2.0)]
+                        pds_per_cluster=2, hist_days=14, **kw)
+    if slice_path:
+        scenarios = sim.mobility_sweep_library(GOLDEN_DAYS, (0.0, 0.3)) \
+            + sim.risk_sweep_library(GOLDEN_DAYS, (0.5, 0.9))
+    else:
+        scenarios = [sim.Scenario("baseline", "nominal grid, nominal fleet"),
+                     sim.Scenario("high_carbon_price", "lambda_e x4",
+                                  lambda_e=2.0)]
     params = sim.build_batch(cfg, scenarios, (0, 1), GOLDEN_DAYS,
                              device=device)
-    return sim.rollout_batch(cfg, GOLDEN_DAYS, device=device)(params)
+    takes, margins = [], []
+
+    def on_day(d, state, out):
+        if out is not None and out.best is not None:
+            takes.append(out.best.take.cpu())
+            margins.append(out.best.margin.cpu())
+
+    state, ledger, _ = sim.rollout_batch(cfg, GOLDEN_DAYS, device=device,
+                                         on_day=on_day)(params)
+    if not takes:
+        return state, ledger, None
+    return state, ledger, (torch.stack(takes, 1), torch.stack(margins, 1))
 
 
-def phase_cross_device():
+TIE_TOL = 1e-5      # a best-of call this close may fall either way
+
+
+def check_verdicts(label, gpu, cpu):
+    """The best-of verdicts of the golden-size slice, (rollout x day) on
+    each device: some rollout-day keeps the joint point, and the devices
+    agree on every call, except where a rollout's first differing call was
+    a tie on both (|margin| <= TIE_TOL: float rounding decides it, and the
+    rollout follows another plan from that day on)."""
+    (gt, gm), (ct, cm) = gpu, cpu
+    print(f"[{label}] rollout-days with the joint point kept (rollout x "
+          f"day): cuda {gt.int().tolist()}, cpu {ct.int().tolist()}",
+          flush=True)
+    if not gt.any():
+        raise AssertionError(f"{label}: no rollout-day kept the joint point")
+    for r in torch.nonzero((gt != ct).any(1)).flatten().tolist():
+        d = int(torch.nonzero(gt[r] != ct[r])[0])
+        print(f"[{label}] rollout {r}, day {d}: the devices' calls differ "
+              f"at margins cuda {gm[r, d]:.3e}, cpu {cm[r, d]:.3e} (a tie "
+              f"within {TIE_TOL:g})", flush=True)
+        if not max(abs(gm[r, d]), abs(cm[r, d])) <= TIE_TOL:
+            raise AssertionError(f"{label}: the devices' best-of calls "
+                                 f"differ on rollout {r}, day {d}, and it "
+                                 "was no tie")
+
+
+def phase_cross_device(slice_path=False):
+    label = "golden slice" if slice_path else "golden"
     t0 = time.perf_counter()
-    gpu_state, gpu_led, _ = golden_rollout("cuda")
-    cpu_state, cpu_led, _ = golden_rollout("cpu")
+    gpu_state, gpu_led, gpu_best = golden_rollout("cuda", slice_path)
+    cpu_state, cpu_led, cpu_best = golden_rollout("cpu", slice_path)
+    if slice_path:
+        check_verdicts(label, gpu_best, cpu_best)
     gaps = {}
     for key in RTOL_KEYS + ATOL_KEYS:
         got = getattr(gpu_led, key).cpu().double()
@@ -368,26 +865,34 @@ def phase_cross_device():
         gaps[key] = gap / max(scale, 1e-12)
         limit = 1e-3 if key in RTOL_KEYS else 5e-2
         if not gap <= limit * max(scale, 1e-12) + 1e-12:
-            raise AssertionError(f"golden {key}: cuda vs cpu gap {gap:.3e} "
-                                 f"beyond {limit:g} x {scale:.3g}")
+            raise AssertionError(f"{label} {key}: cuda vs cpu gap "
+                                 f"{gap:.3e} beyond {limit:g} x {scale:.3g}")
     got, want = gpu_state.queue.cpu().double(), cpu_state.queue.double()
     gaps["queue"] = (got - want).abs().max().item() / max(
         want.abs().max().item(), 1e-12)
     if gaps["queue"] > 5e-2:
-        raise AssertionError(f"golden queue gap {gaps['queue']:.3e}")
-    print("[golden] cuda (kernel) vs cpu (plain), largest gap relative to "
-          "the largest value: " + ", ".join(f"{k} {v:.3e}"
-                                           for k, v in gaps.items())
+        raise AssertionError(f"{label} queue gap {gaps['queue']:.3e}")
+    print(f"[{label}] cuda (kernels) vs cpu (plain), largest gap relative "
+          "to the largest value: " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in gaps.items())
           + f"; {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def main():
+    t0 = time.perf_counter()
     name, sms, clock_mhz = phase_device()
+    card = Card(sms, clock_mhz)
     phase_build()
-    record = phase_kernels(sms, clock_mhz)
-    record["launches"] = phase_main_path()
+    records = [phase_kernels(card), phase_ens_kernel(card),
+               phase_joint_kernel(card)]
+    records[0]["launches"] = phase_main_path()
+    counts, _ = phase_slice_path()
+    # kernel #1 counts on the main path; #2 and #3 on the slice path
+    records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
     phase_cross_device()
-    print(json.dumps({"kernels": [record]}))
+    phase_cross_device(slice_path=True)
+    print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": records}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,8 +8,8 @@ fields as a dict), become the port's tuples on ``device``:
 * other integers -> int64, booleans stay bool, floats -> float32.
 
 The parity tests use these to feed both sides identical inputs stage by
-stage. Fields of later slices (the intraday channels, the streaming carry,
-forecast ensembles) must be absent or None.
+stage. Fields of later slices (the intraday channels, the streaming carry)
+must be absent or None.
 """
 from __future__ import annotations
 
@@ -65,14 +65,19 @@ def state_from_numpy(tree, device=None) -> stages.SimState:
 
 
 def problem_from_numpy(tree, device=None) -> vcc.VCCProblem:
-    """The JAX ``VCCProblem`` (its fields as numpy arrays) -> the port's."""
+    """The JAX ``VCCProblem`` (its fields as numpy arrays) -> the port's.
+    A problem with forecast members keeps ``eta_ens``, ``pow_nom_ens`` and
+    ``risk_beta``; without them all three are None (the reference's
+    ``risk_beta`` default of 1.0 acts only on members)."""
     if not isinstance(tree, Mapping):
         tree = {k: getattr(tree, k) for k in vars(tree)}
-    for name in ("eta_ens", "pow_nom_ens"):
-        if tree.get(name) is not None:
-            raise NotImplementedError("forecast ensembles are not ported yet")
-    fields = {f: tensor(tree[f], device)
+    ens = tree.get("eta_ens") is not None
+    fields = {f: tensor(tree[f], device) if ens or f not in ENSEMBLE
+              else None
               for f in vcc.VCCProblem.__dataclass_fields__
               if f != "drop_limit"}
     return vcc.VCCProblem(**fields,
                           drop_limit=float(tree.get("drop_limit", 0.8)))
+
+
+ENSEMBLE = ("eta_ens", "pow_nom_ens", "risk_beta")

@@ -11,6 +11,7 @@ jax 0.9 uses by default (``jax_threefry_partitionable=True``):
 * ``fold_in`` is ``threefry_fold_in``: hash the count pair ``(0, data)``;
 * ``random_bits`` is ``_threefry_random_bits_partitionable`` at 32 bits:
   hash the 64-bit iota, xor the two halves;
+* ``randint`` is ``jax/_src/random.py:_randint`` for int32;
 * ``uniform`` and ``normal`` are ``jax/_src/random.py:_uniform`` and
   ``_normal_real`` (sqrt(2) * erfinv of a uniform on (-1, 1)).
 
@@ -113,6 +114,27 @@ def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """32 random bits per element: (..., 2) -> int64 (..., *shape)."""
     b1, b2 = _iota_hash(key, _shape(shape))
     return b1 ^ b2
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint`` for int32 (``_randint``): (..., 2) -> int64
+    (..., *shape) in [minval, maxval).
+
+    Two 32-bit draws from the two halves of ``split(key)`` are reduced
+    modulo the span as one 64-bit number: ``(hi % span) * (2**32 % span) +
+    lo % span``, all in wrapping uint32 arithmetic, then ``% span`` again.
+    ``maxval <= minval`` gives ``minval``."""
+    lo_v, hi_v = int(minval), int(maxval)
+    if not -2**31 <= lo_v <= hi_v <= 2**31 - 1:
+        raise ValueError(f"int32 range expected, got [{minval}, {maxval})")
+    span = max(hi_v - lo_v, 1)
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    mult = ((2**16 % span) ** 2 & MASK) % span
+    off = ((higher % span) * mult & MASK) + lower % span
+    return lo_v + (off & MASK) % span
 
 
 def uniform(key: torch.Tensor, shape: Shape, minval=0.0, maxval=1.0

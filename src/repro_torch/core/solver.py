@@ -1,5 +1,5 @@
-"""Projected-gradient solver layer (the main path's part of
-``repro.core.solver``).
+"""Projected-gradient solver layer (port of ``repro.core.solver``, without
+the telemetry hooks).
 
 * ``project_conservation`` — exact bisection projection of each row onto
   {sum = 0} ∩ [lo, ub] (the plain version lives in
@@ -10,7 +10,10 @@
   the per-cluster learning rate.
 * ``campus_dual_update`` / ``dual_ascent`` — the outer loop: rounds of
   [inner PGD epoch -> clipped ascent on the campus power couplings].
-* ``pgd_epochs`` — the fused epoch, dispatched by ``kernels.vcc_pgd.ops``.
+* ``pgd_epochs`` — the fused epoch (plain or CVaR ensemble), dispatched by
+  ``kernels.vcc_pgd.ops``;
+* ``joint_epochs`` — joint spatio-temporal steps: the fused per-cluster
+  joint step, then the fleet-coupled projection of the shift s in PyTorch.
 
 Every function takes optional leading batch axes (the scenario x seed batch)
 before the cluster axis; a per-rollout scalar has the batch shape.
@@ -98,3 +101,20 @@ def pgd_epochs(prob, delta, mu, lo, ub, lr_eff, temp, iters: int):
     """``iters`` fused temporal PGD steps (gradient + exact projection):
     the hand-written kernel for CUDA tensors, the plain version on CPU."""
     return _ops.pgd_epoch(prob, delta, mu, lo, ub, lr_eff, temp, iters)
+
+
+def joint_epochs(prob, delta, s, mu, lo_s, ub_s, lr_d, lr_s, temp,
+                 iters: int):
+    """``iters`` joint spatio-temporal steps. Each runs the fused
+    per-cluster joint step (the kernel for CUDA tensors: temporal bounds
+    recomputed from tau + s, delta gradient and projection, per-cluster
+    shift gradient g_s), then descends s and projects it onto
+    {sum_c s = 0} ∩ [lo_s, ub_s], one bisection row per rollout over the
+    cluster axis. delta (..., n, H); s/lo_s/ub_s (..., n); lr_d
+    (..., n, 1); lr_s/temp per rollout (...). Returns (delta, s)."""
+    d, sv = delta, s
+    lr_s = torch.as_tensor(lr_s)[..., None]
+    for _ in range(iters):
+        d, g_s = _ops.joint_step(prob, d, sv, mu, lr_d, temp)
+        sv = project_conservation(sv - lr_s * g_s, lo_s, ub_s)
+    return d, sv

@@ -1,21 +1,31 @@
-"""Spatial flexibility: the greedy day-ahead pre-shift of flexible budgets
-across clusters (the paper's planned next step, §V).
+"""Spatial flexibility: day-ahead shifting of flexible budgets across
+clusters (the paper's planned next step, §V). Port of ``repro.core.spatial``.
 
-Port of ``repro.core.spatial`` for the main path: the budget shift s is the
-exact linear minimizer of the carbon price over {sum_c s = 0} ∩ [lo, ub]
-(``solver.minimize_linear``), and the temporal VCC solve runs on the shifted
-budgets. Each rollout is one row of n clusters. A cluster may export at most
+* ``spatial_shift`` — the greedy pre-shift: the budget shift s is the exact
+  linear minimizer of the carbon price over {sum_c s = 0} ∩ [lo, ub]
+  (``solver.minimize_linear``), and the temporal VCC solve runs on the
+  shifted budgets.
+* ``solve_joint`` — the joint spatio-temporal solve: delta (..., n, H) and
+  s (..., n) descend together, the temporal bounds recomputed from tau + s
+  inside every fused step (the joint-step kernel), warm-started from the
+  greedy answer and never worse than it (a best-of safeguard per rollout).
+
+Each rollout is one row of n clusters. A cluster may export at most
 ``mobility * tau_c`` and import at most ``min(mobility * tau_c,
-headroom_c)``; mobility 0 returns tau exactly.
+headroom_c)``; mobility 0 pins s to 0.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core import solver
-from repro_torch.core.vcc import VCCProblem
+from repro_torch import device as _device
+from repro_torch.core import solver, vcc
+from repro_torch.core.vcc import VCCProblem, VCCSolution
+
+f32 = torch.float32
 
 
 def carbon_price(p: VCCProblem) -> torch.Tensor:
@@ -41,3 +51,129 @@ def spatial_shift(p: VCCProblem, *, mobility=0.3):
     lo, ub = shift_bounds(p, mobility)
     shift = solver.minimize_linear(price, lo, ub)
     return torch.clamp(p.tau + shift, min=0.0), price
+
+
+# ------------------------------------------------- joint spatio-temporal
+
+def joint_power(p: VCCProblem, delta, s):
+    """Hourly power under (delta, s): the linearization around the original
+    nominal point, with the baseline term pi * s / 24 of moving the flat
+    daily budget itself."""
+    return p.pow_nom + p.pi * (delta * (p.tau + s)[..., None]
+                               + s[..., None]) / 24.0
+
+
+def joint_carbon(p: VCCProblem, delta, s):
+    """Model-consistent expected carbon (kg) of the joint point: (...)."""
+    return (p.eta * joint_power(p, delta, s)).sum(dim=(-2, -1))
+
+
+def joint_objective(p: VCCProblem, delta, s, mu=None):
+    """Nominal day cost of (delta, s): carbon price + hard hourly peak.
+    ``mu=None`` evaluates the primal objective (lambda_p only), the scale
+    both best-of candidates are compared on."""
+    y = joint_power(p, delta, s).amax(-1)
+    price = p.lambda_p[..., None] if mu is None \
+        else p.lambda_p[..., None] + torch.gather(mu, -1, p.campus)
+    return p.lambda_e * joint_carbon(p, delta, s) + (price * y).sum(-1)
+
+
+class BestOf(NamedTuple):
+    """The best-of safeguard's call, per rollout (the reference reports
+    ``take`` as ``joint_winner`` in its telemetry)."""
+    take: torch.Tensor    # (...) bool: the joint point was kept
+    # (...) the smaller of the joint point's relative gains in objective and
+    # in carbon over the warm start, >= 0 where kept: how close the call
+    # was (-inf where no joint point was formed)
+    margin: torch.Tensor
+
+
+def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
+                outer_iters: int = 20, joint_inner: int = 25,
+                joint_outer: int = 8, lr: float = 0.5, lr_s: float = 0.15,
+                temp_frac: float = 0.02, rho: float = 0.2, device=None):
+    """Joint spatio-temporal VCC optimization on ``device`` (default
+    ``"cuda"``). Returns (solution, tau_joint (..., n), s (..., n),
+    ``BestOf``); the solution's deviations and curves are those of the
+    shifted budgets tau_joint = clip(tau + s, 0).
+
+    1. A Python-number ``mobility == 0`` is the temporal solve alone.
+       A tensor ``mobility`` (one per rollout) always runs the joint path;
+       rollouts at 0 keep s = 0 through their bounds.
+    2. Warm start: greedy ``spatial_shift`` + ``solve_vcc`` at the shifted
+       budgets.
+    3. Joint refinement: ``joint_outer`` dual-ascent rounds, each
+       ``joint_inner`` fused joint steps (``solver.joint_epochs``).
+    4. Best-of safeguard, per rollout: the joint point is kept only if it
+       weakly improves both the nominal objective and its carbon term over
+       the warm start, both evaluated model-consistently
+       (``joint_objective`` / ``joint_carbon``)."""
+    dev = _device.resolve(device)
+    p = p.to(dev)
+    if not isinstance(mobility, torch.Tensor) and float(mobility) == 0.0:
+        sol = vcc.solve_vcc(p, inner_iters=inner_iters,
+                            outer_iters=outer_iters, lr=lr,
+                            temp_frac=temp_frac, rho=rho, device=dev)
+        return sol, p.tau, torch.zeros_like(p.tau), BestOf(
+            torch.zeros_like(p.lambda_e, dtype=torch.bool),
+            torch.full_like(p.lambda_e, -torch.inf))
+
+    mob = torch.as_tensor(mobility, dtype=f32, device=dev)
+    # 2. sequential two-phase warm start
+    tau_sh, _ = spatial_shift(p, mobility=mob)
+    sol_seq = vcc.solve_vcc(dataclasses.replace(p, tau=tau_sh),
+                            inner_iters=inner_iters, outer_iters=outer_iters,
+                            lr=lr, temp_frac=temp_frac, rho=rho, device=dev)
+    lo_s, ub_s = shift_bounds(p, mob)
+    s0 = torch.clamp(tau_sh - p.tau, lo_s, ub_s)
+
+    # 3. joint refinement from (delta_seq, s0)
+    temp = solver.peak_temperature(p.pow_nom, temp_frac)
+    lr_d = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
+    # shift-gradient scale: g_s ~ lambda_e * mean_h(eta pi) + price pi / 24
+    g_norm = torch.clamp((p.lambda_e[..., None] * (p.eta * p.pi).mean(-1)
+                          + p.lambda_p[..., None] * p.pi.mean(-1) / 24.0
+                          ).amax(-1), min=1e-9)
+    lr_s_eff = lr_s * torch.clamp(p.tau.mean(-1), min=1e-6) / g_norm
+
+    def inner(x, mu):
+        d, s = x
+        return solver.joint_epochs(p, d, s, mu, lo_s, ub_s, lr_d, lr_s_eff,
+                                   temp, joint_inner)
+
+    def dual_update(x, mu):
+        d, s = x
+        y = joint_power(p, d, s).amax(-1)
+        return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
+                                         rho)
+
+    (d_j, s_j), mu_j = solver.dual_ascent(inner, dual_update,
+                                          (sol_seq.delta, s0), sol_seq.mu,
+                                          joint_outer)
+
+    # 4. best-of safeguard, per rollout
+    obj_j, obj_q = joint_objective(p, d_j, s_j), \
+        joint_objective(p, sol_seq.delta, s0)
+    co2_j, co2_q = joint_carbon(p, d_j, s_j), joint_carbon(p, sol_seq.delta,
+                                                          s0)
+    take = (obj_j <= obj_q) & (co2_j <= co2_q)
+    margin = torch.minimum((obj_q - obj_j) / obj_q.abs(),
+                           (co2_q - co2_j) / co2_q.abs())
+    delta = torch.where(take[..., None, None], d_j, sol_seq.delta)
+    s = torch.where(take[..., None], s_j, s0)
+    mu = torch.where(take[..., None], mu_j, sol_seq.mu)
+
+    tau_j = torch.clamp(p.tau + s, min=0.0)
+    pf = dataclasses.replace(p, tau=tau_j)
+    _, _, feasible = vcc.delta_bounds(pf)
+    delta = torch.where(feasible[..., None], delta, 0.0)
+    y = joint_power(p, delta, s).amax(-1)
+    vcc_shaped = (pf.u_if + (1.0 + delta) * tau_j[..., None] / 24.0) \
+        * pf.ratio
+    cap = pf.capacity[..., None]
+    vcc_curve = torch.where(feasible[..., None],
+                            torch.minimum(vcc_shaped, cap),
+                            cap.expand_as(vcc_shaped))
+    sol = VCCSolution(delta=delta, y=y, vcc=vcc_curve, shaped=feasible,
+                      mu=mu, objective=joint_objective(p, delta, s, mu))
+    return sol, tau_j, s, BestOf(take, margin)

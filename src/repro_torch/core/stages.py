@@ -8,15 +8,19 @@ Every simulated day is the same pipeline (paper Fig. 4/5):
   forecast_stage  — day-ahead U_IF(h), T_UF(d), T_R(d), R(h), trailing
                     error quantiles -> Theta, alpha (eq. 3)
   optimize_stage  — greedy spatial pre-shift, then the fleetwide VCC solve
-                    (eq. 4) through the fused PGD kernel
+                    (eq. 4) through the fused PGD kernel; or the joint
+                    spatio-temporal solve (``joint_spatial``); with
+                    ``n_members > 1`` the solve at the placed budgets is a
+                    CVaR over K forecast members (``core.risk``) at
+                    ``SimParams.risk_beta``
   (SLO gate)      — paused clusters get VCC = machine capacity
   observe_stage   — Borg-like admission on ACTUAL load, shaped + unshaped
                     counterfactual
   slo_stage       — violation detection + shaping-pause feedback
 
-This slice ports the default ``StageConfig()`` graph: rescan forecasting,
-one forecast member, telemetry, MPC, streaming and joint-spatial off;
-``make_day_step`` raises on any other flag.
+The port runs rescan forecasting, with or without the joint spatial solve
+and forecast ensembles; ``make_day_step`` raises on streaming, telemetry and
+MPC, which are not ported.
 
 Batching: every leaf of ``SimParams`` and ``SimState`` carries a leading
 (scenario x seed) batch axis B, in place of the reference's ``vmap``; the
@@ -27,13 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import (admission, carbon, forecast, power, prng, slo,
-                              solver, spatial, vcc)
+from repro_torch.core import (admission, carbon, forecast, power, prng,
+                              risk, slo, solver, spatial, vcc)
 
 f32 = torch.float32
 hour_sum = admission.hour_sum
@@ -173,7 +177,7 @@ class SimParams(NamedTuple):
     lambda_p: torch.Tensor            # (B,) peak-power price
     gamma: torch.Tensor               # (B,) power-capping violation prob
     mobility: torch.Tensor            # (B,) spatial-shift mobility
-    risk_beta: torch.Tensor           # (B,) CVaR tail fraction (unused: K=1)
+    risk_beta: torch.Tensor           # (B,) CVaR tail fraction (acts at K > 1)
     green_scale: torch.Tensor         # (B, days, z) solar+wind multiplier
     coal_scale: torch.Tensor          # (B, days, z) coal-share multiplier
     cap_scale: torch.Tensor           # (B, days, n) capacity multiplier
@@ -215,12 +219,13 @@ class StepOut(NamedTuple):
     fc: Dict[str, torch.Tensor]       # forecast dict
     prob: vcc.VCCProblem              # problem actually optimized
     eta_act: torch.Tensor             # (B, n, 24) actual intensity
+    best: Optional[spatial.BestOf] = None  # joint solve's call (joint only)
 
 
 @dataclass(frozen=True)
 class StageConfig:
-    """Knobs of the staged day cycle. This slice runs the defaults of the
-    four graph flags only; ``make_day_step`` raises on any other value."""
+    """Knobs of the staged day cycle. ``streaming``, ``telemetry`` and
+    ``mpc`` must keep their defaults (``make_day_step`` raises)."""
     slo_margin: float = 1.0
     slo_pause_days: int = 7
     joint_spatial: bool = False
@@ -347,16 +352,38 @@ def build_problem_arrays(fc, eta_fc, power_fn, slope_fn, queue, u_pow_cap,
 
 def optimize_stage(fc, eta_fc, model: PowerModel, queue, u_pow_cap,
                    cap_day, campus, campus_limit, lambda_e, lambda_p,
-                   mobility):
-    """Greedy spatial pre-shift (mobility 0 leaves tau exactly), then the
-    fleetwide VCC solve. Returns (prob, sol)."""
+                   mobility, *, cfg: StageConfig = StageConfig(), ens=None):
+    """Fleetwide VCC optimization. Returns (prob, sol, best): ``best``
+    is the joint solve's best-of call per rollout (``spatial.BestOf``),
+    None without ``cfg.joint_spatial``.
+
+    * ``cfg.joint_spatial`` False: greedy spatial pre-shift (mobility 0
+      leaves tau exactly), then the temporal solve;
+    * True: ``spatial.solve_joint`` places the budgets and shapes them
+      together, never worse than the greedy answer per rollout.
+
+    ``ens`` (the ``risk.day_ensembles`` dict, present iff cfg.n_members >
+    1) attaches the K members after the budgets are placed; the temporal
+    solve then descends the soft-CVaR member tilt. Under joint_spatial the
+    joint solve places the budgets on the point forecast, and the CVaR
+    solve shapes them."""
     prob = build_problem_arrays(
         fc, eta_fc, lambda u: model_power(model, u),
         lambda u: model_slope(model, u), queue, u_pow_cap, cap_day, campus,
         campus_limit, lambda_e, lambda_p)
+    dev = prob.eta.device
+    if cfg.joint_spatial:
+        sol, tau_j, _, best = spatial.solve_joint(prob, mobility, device=dev)
+        prob = dataclasses.replace(prob, tau=tau_j)
+        if ens is not None:
+            prob = risk.attach_ensemble(prob, **ens)
+            sol = vcc.solve_vcc(prob, device=dev)
+        return prob, sol, best
     tau_shifted, _ = spatial.spatial_shift(prob, mobility=mobility)
     prob = dataclasses.replace(prob, tau=tau_shifted)
-    return prob, vcc.solve_vcc(prob, device=prob.eta.device)
+    if ens is not None:
+        prob = risk.attach_ensemble(prob, **ens)
+    return prob, vcc.solve_vcc(prob, device=dev), None
 
 
 def observe_stage(truth, day, day_key, vcc_curve, cap_day, arr_scale,
@@ -392,13 +419,12 @@ def make_day_step(cfg: StageConfig):
 
     Returns step(params, state, xs) -> (state', StepOut) where xs holds this
     day's scenario-schedule slices (B, z) / (B, n) / (B, m)."""
-    off = {"joint_spatial": False, "n_members": 1, "streaming": False,
-           "telemetry": False, "mpc": False}
-    for name, default in off.items():
-        if getattr(cfg, name) != default:
+    for name in ("streaming", "telemetry", "mpc"):
+        if getattr(cfg, name):
             raise NotImplementedError(
-                f"StageConfig.{name}={getattr(cfg, name)!r} is not ported "
-                "yet; the port runs the paper-mode day only")
+                f"StageConfig.{name}=True is not ported yet")
+    if cfg.n_members < 1:
+        raise ValueError(f"n_members must be >= 1, got {cfg.n_members}")
     slo_cfg = slo.SLOConfig(margin=cfg.slo_margin,
                             pause_days=cfg.slo_pause_days)
 
@@ -418,11 +444,18 @@ def make_day_step(cfg: StageConfig):
                                    xs["green_scale"], xs["coal_scale"])
         eta_act = take(act_z, state.zmap)
         eta_fc = take(fc_z, state.zmap)
-        prob, sol = optimize_stage(
+        # forecast ensembles (K > 1 only: K = 1 is the point-forecast day)
+        ens = None
+        if cfg.n_members > 1:
+            ens = risk.day_ensembles(
+                prng.fold_in(day_key, 5), cfg.n_members, fc["uif"],
+                state.hist_uif_pred, state.hist_uif, fc_z,
+                state.carbon_hist, state.zmap, params.risk_beta)
+        prob, sol, best = optimize_stage(
             fc, eta_fc, model, state.queue,
             state.u_pow_cap * xs["cap_scale"], cap_day, state.campus,
             state.campus_limit * xs["campus_scale"], params.lambda_e,
-            params.lambda_p, params.mobility)
+            params.lambda_p, params.mobility, cfg=cfg, ens=ens)
         # SLO gate: paused clusters get VCC = machine capacity
         gate = state.shaping_allowed & sol.shaped
         vcc_curve = torch.where(gate[..., None], sol.vcc,
@@ -458,7 +491,7 @@ def make_day_step(cfg: StageConfig):
         )
         return new_state, StepOut(res=res, cf=cf, sol=sol,
                                   vcc_curve=vcc_curve, fc=fc, prob=prob,
-                                  eta_act=eta_act)
+                                  eta_act=eta_act, best=best)
 
     return step
 

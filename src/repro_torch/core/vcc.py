@@ -13,14 +13,17 @@ coupling, assembled from ``core.solver``. The PGD epoch is the fused kernel
 (``kernels.vcc_pgd``). Clusters whose bounds make shaping infeasible get
 VCC = machine capacity.
 
-Port of ``repro.core.vcc`` for the main path (point forecast, telemetry
-off). Every field may carry leading batch axes (the scenario x seed batch);
-``lambda_e`` and ``lambda_p`` then have the batch shape.
+Port of ``repro.core.vcc`` (telemetry off). Every field may carry leading
+batch axes (the scenario x seed batch); ``lambda_e``, ``lambda_p`` and
+``risk_beta`` then have the batch shape. A problem may carry K day-ahead
+forecast members (``risk.attach_ensemble``); its PGD epoch then descends the
+soft-CVaR member tilt at ``risk_beta`` (the CVaR ensemble kernel).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,7 +37,11 @@ f32 = torch.float32
 @dataclass(frozen=True)
 class VCCProblem:
     """Stacked fleetwide problem: (..., n, H) hourly and (..., n) cluster
-    fields, (..., n_dc) campus limits, per-rollout prices of shape (...)."""
+    fields, (..., n_dc) campus limits, per-rollout prices of shape (...).
+
+    The optional ensemble fields carry K forecast realizations, (..., K, n,
+    H), member 0 the point forecast, and the CVaR tail fraction ``risk_beta``
+    (...) (1 = risk-neutral mean). None = the point-forecast problem."""
     eta: torch.Tensor           # (..., n, H) carbon intensity forecast
     u_if: torch.Tensor          # (..., n, H) predicted inflexible CPU
     u_if_q: torch.Tensor        # (..., n, H) (1-gamma) quantile of it
@@ -49,6 +56,9 @@ class VCCProblem:
     lambda_e: torch.Tensor      # (...) $ / kg CO2e
     lambda_p: torch.Tensor      # (...) $ / kW / day
     drop_limit: float = 0.8
+    eta_ens: Optional[torch.Tensor] = None       # (..., K, n, H) intensity
+    pow_nom_ens: Optional[torch.Tensor] = None   # (..., K, n, H) power
+    risk_beta: Optional[torch.Tensor] = None     # (...) CVaR tail fraction
 
     def to(self, device) -> "VCCProblem":
         return dataclasses.replace(self, **{
@@ -85,8 +95,15 @@ def cluster_power(p: VCCProblem, delta):
     return p.pow_nom + p.pi * delta * p.tau[..., None] / 24.0
 
 
-def objective(p: VCCProblem, delta, mu):
-    """Eq. 4 day cost of ``delta`` at campus duals ``mu``: shape (...)."""
+def objective(p: VCCProblem, delta, mu, *, risk: bool = True):
+    """Day cost of ``delta`` at campus duals ``mu``: shape (...). Eq. 4 for
+    a point-forecast problem; the soft CVaR over the members
+    (``risk.soft_cvar_objective``) for an ensemble problem unless
+    ``risk=False`` asks for the nominal (point-forecast) cost, which is what
+    ``solve_vcc`` records."""
+    if risk and p.eta_ens is not None:
+        from repro_torch.core import risk as _risk
+        return _risk.soft_cvar_objective(p, delta, mu)
     pow_h = cluster_power(p, delta)
     y = pow_h.amax(-1)
     carbon = p.lambda_e * (p.eta * pow_h).sum(dim=(-2, -1))
@@ -98,8 +115,12 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
               lr: float = 0.5, temp_frac: float = 0.02, rho: float = 0.2,
               device=None) -> VCCSolution:
     """Solve the fleetwide VCC problem (eq. 4) on ``device`` (default
-    ``"cuda"``; ``"cpu"`` runs the plain epoch). ``outer_iters`` dual-ascent
-    rounds, each one fused epoch of ``inner_iters`` PGD steps."""
+    ``"cuda"``; ``"cpu"`` runs the plain epochs). ``outer_iters`` dual-ascent
+    rounds, each one fused epoch of ``inner_iters`` PGD steps. An ensemble
+    problem takes the CVaR epoch; a K = 1 ensemble is the point-forecast
+    problem exactly. ``objective`` is the nominal cost either way."""
+    if p.eta_ens is not None and p.eta_ens.shape[-3] == 1:
+        p = dataclasses.replace(p, eta_ens=None, pow_nom_ens=None)
     p = p.to(_device.resolve(device))
     lo, ub, feasible = delta_bounds(p)
     # neutralize infeasible clusters: bounds collapse to {0}
@@ -127,7 +148,7 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
     vcc = torch.where(feasible[..., None], torch.minimum(vcc_shaped, cap),
                       cap.expand_as(vcc_shaped))
     return VCCSolution(delta=delta, y=y, vcc=vcc, shaped=feasible, mu=mu,
-                       objective=objective(p, delta, mu))
+                       objective=objective(p, delta, mu, risk=False))
 
 
 def synthetic_problem(n: int = 12, seed: int = 7, n_campuses: int = 2,

@@ -12,13 +12,12 @@
 //          on sum_h clip(z - nu, lo, ub) = 0 from the bracket
 //          [min z - max ub, max z - min lo]
 //
-// Design: one warp per row, hour h in lane h; lanes H..31 are masked. Each
-// lane keeps its delta, eta, pi, pow_nom, lo and ub in registers for the
-// whole epoch and the row's five scalars are read once, so the epoch reads
-// every input once and writes delta once, as the TPU kernel does in VMEM.
-// The reductions (softmax max and sum, bracket min/max, one sum per
-// bisection step) are warp shuffles; a butterfly gives every lane the same
-// bits, so the bisection branch is uniform across the warp.
+// Design: one warp per row, hour h in lane h; lanes H..31 are masked (see
+// pgd_common.cuh, which holds the reductions, the softmax and the
+// projection). Each lane keeps its delta, eta, pi, pow_nom, lo and ub in
+// registers for the whole epoch and the row's five scalars are read once,
+// so the epoch reads every input once and writes delta once, as the TPU
+// kernel does in VMEM.
 //
 // What bounds it: not bytes (the epoch moves 4 * (7H + 5) bytes a row) and
 // not its FP32 operations (about 5,400 a row and step at H = 24), but the
@@ -26,36 +25,13 @@
 // butterflies, 50 of them in the bisection), and an SM issues one warp
 // shuffle a clock. PERF.md holds the measured times beside these floors.
 // Eight rows (warps) per block; ceil(rows / 8) blocks.
-//
-// Masked lanes stay out of every reduction: -inf in the softmax max, 0 in
-// the softmax sum and the bisection sum, +-inf in the bracket min/max. They
-// are never written. The bisection keeps its fixed step count (no
-// tolerance stop), as the reference does.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pgd_common.cuh"
 
 namespace {
 
+using namespace vcc_pgd;
+
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 pgd_epoch_kernel(const float* __restrict__ delta, const float* __restrict__ eta,
@@ -88,23 +64,10 @@ pgd_epoch_kernel(const float* __restrict__ delta, const float* __restrict__ eta,
   const float lo_min = warp_min(on ? lo_h : INFINITY);
 
   for (int it = 0; it < iters; ++it) {
-    const float pw = pn_h + p_h * d * t24;
-    const float s = on ? pw / tmp : -INFINITY;
-    const float s_max = warp_max(s);
-    const float ex = on ? expf(s - s_max) : 0.f;
-    const float w = ex / warp_sum(ex);
-    const float grad = (lam * e_h + pr * w) * p_h * t24;
-    const float z = d - step * grad;
-
-    float a = warp_min(on ? z : INFINITY) - ub_max;
-    float b = warp_max(on ? z : -INFINITY) - lo_min;
-    for (int k = 0; k < proj_iters; ++k) {
-      const float m = 0.5f * (a + b);
-      const float f = warp_sum(on ? fminf(fmaxf(z - m, lo_h), ub_h) : 0.f);
-      if (f > 0.f) a = m; else b = m;
-    }
-    const float nu = 0.5f * (a + b);
-    d = fminf(fmaxf(z - nu, lo_h), ub_h);
+    const float pw = power_at(pn_h, __fmul_rn(p_h, d), t24);
+    const float w = softmax_weight(pw, tmp, on);
+    const float z = descend(d, step, lam, e_h, pr, w, p_h, t24);
+    d = project(z, lo_h, ub_h, ub_max, lo_min, on, proj_iters);
   }
   if (on) out[off] = d;
 }

@@ -1,15 +1,25 @@
-"""Hopper kernel for the fused VCC PGD epoch: build, bind and launch.
+"""Hopper kernels for the VCC projected-gradient solvers: build, bind, launch.
 
-The kernel is hand-written CUDA C++ in ``csrc/pgd_epoch.cu`` and replaces
-the TPU kernel ``src/repro/kernels/vcc_pgd/kernel.py:122``
-(``pgd_epoch_pallas``). At first use in a process, ``nvcc`` compiles that
-source alone into a shared library under ``build/`` at the repository root
-(named by a hash of the source, so an edited source is always rebuilt) and
-``ctypes`` loads its plain C entry point. Nothing is compiled or loaded when
+Three hand-written CUDA C++ kernels, one source each under ``csrc/``, share
+their reductions, softmax and projection through ``csrc/pgd_common.cuh``:
+
+* ``pgd_epoch.cu`` replaces ``src/repro/kernels/vcc_pgd/kernel.py:122``
+  (``pgd_epoch_pallas``): the fused PGD epoch;
+* ``pgd_epoch_ens.cu`` replaces ``kernel.py:251`` (``pgd_epoch_ens_pallas``):
+  the CVaR ensemble epoch;
+* ``joint_step.cu`` replaces ``kernel.py:207`` (``joint_step_pallas``): one
+  joint spatio-temporal step.
+
+At first use in a process, ``nvcc`` compiles a source alone into a shared
+library under ``build/`` at the repository root (named by a hash of the
+source, the shared header and ``NVCC_FLAGS``, so an edited source or flag is
+always rebuilt) and ``ctypes`` loads its plain C entry point. Nothing is compiled or loaded when
 this module is imported, so the CPU tests import it without ``nvcc``.
 
-``pgd_epoch_cuda`` launches on ``torch.cuda.current_stream()`` and adds one
-to ``pgd_epoch_cuda.launches`` per launch.
+Each ``*_cuda`` wrapper launches on ``torch.cuda.current_stream()`` and adds
+one to its ``launches`` attribute per launch. Beside each wrapper,
+``*_flops``, ``*_bytes`` and ``*_shuffles`` count the work as its source
+does it (the bound in ``chip_smoke.py`` and PERF.md comes from them).
 """
 from __future__ import annotations
 
@@ -20,16 +30,31 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pgd_epoch.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"pgd_epoch": CSRC / "pgd_epoch.cu",
+           "pgd_epoch_ens": CSRC / "pgd_epoch_ens.cu",
+           "joint_step": CSRC / "joint_step.cu"}
+HEADERS = (CSRC / "pgd_common.cuh",)
 REPO_ROOT = Path(__file__).resolve().parents[4]
 BUILD_DIR = REPO_ROOT / "build"
+# nvcc's default FMA contraction stays on (-fmad=false costs kernel #1 4%
+# on the H100, PERF.md); the expressions kernels #1 and #2 share are spelled
+# with explicit FMAs in csrc/pgd_common.cuh instead
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_H = 32
+MAX_MEMBERS = 32
 
-_lib = None
+_P, _I, _F = "p", "i", "f"
+# C entry point and argument kinds (pointer, int, float) of each library
+_ENTRY = {"pgd_epoch": ("pgd_epoch_f32", _P * 12 + _I * 4 + _P),
+          "pgd_epoch_ens": ("pgd_epoch_ens_f32", _P * 13 + _I * 6 + _P),
+          "joint_step": ("joint_step_f32", _P * 17 + _I * 2 + _F * 2 + _I
+                         + _P)}
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -40,44 +65,48 @@ def _nvcc() -> str:
     if (home / "bin" / "nvcc").exists():
         return str(home / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       "the kernels in csrc/")
 
 
-def build(verbose: bool = False):
-    """Compile ``csrc/pgd_epoch.cu`` into ``build/`` unless that exact
-    source is already built; ``verbose=True`` always compiles, with
-    ``-Xptxas -v``, to report registers and spills. Returns (library
+def build(name: str = "pgd_epoch", verbose: bool = False):
+    """Compile ``SOURCES[name]`` with ``NVCC_FLAGS`` into ``build/``
+    unless that exact source, header and flags are already built;
+    ``verbose=True`` always compiles, with ``-Xptxas -v``, to report
+    registers and spills. Returns (library
     path, seconds, nvcc output); raises on a failed build."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"pgd_epoch-{digest}.so"
+    source = SOURCES[name]
+    digest = hashlib.sha1(b"".join(
+        p.read_bytes() for p in (source, *HEADERS))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"{name}-{digest}.so"
     if lib.exists() and not verbose:
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, secs, proc.stdout + proc.stderr
 
 
-def _load():
-    global _lib
-    if _lib is None:
+def _load(name: str):
+    """The C entry point of kernel ``name``, built and loaded at first use."""
+    if name not in _libs:
         import ctypes
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.pgd_epoch_f32
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        kinds = {_P: ctypes.c_void_p, _I: ctypes.c_int, _F: ctypes.c_float}
+        path, _, _ = build(name)
+        entry, sig = _ENTRY[name]
+        fn = getattr(ctypes.CDLL(str(path)), entry)
+        fn.argtypes = [kinds[k] for k in sig]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = fn
+    return _libs[name]
 
 
 def _check(name, x, shape):
@@ -91,12 +120,7 @@ def _check(name, x, shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
 
 
-def pgd_epoch_cuda(delta, eta, pi, pow_nom, tau24, price, lo, ub, lr, temp,
-                   lambda_e, *, iters: int, proj_iters: int = 50
-                   ) -> torch.Tensor:
-    """Launch the fused epoch. delta/eta/pi/pow_nom/lo/ub: (rows, H) with
-    H <= 32; tau24/price/lr/temp/lambda_e: (rows, 1). All float32,
-    contiguous, on one CUDA device. Returns the new delta (rows, H)."""
+def _rows_h(delta):
     if delta.dim() != 2:
         raise ValueError("delta: (rows, H) expected, got "
                          f"{tuple(delta.shape)}")
@@ -104,27 +128,47 @@ def pgd_epoch_cuda(delta, eta, pi, pow_nom, tau24, price, lo, ub, lr, temp,
     if not 1 <= H <= MAX_H:
         raise ValueError(f"the kernel holds one row per warp: H <= {MAX_H}, "
                          f"got {H}")
-    wide = dict(delta=delta, eta=eta, pi=pi, pow_nom=pow_nom, lo=lo, ub=ub)
-    slim = dict(tau24=tau24, price=price, lr=lr, temp=temp,
-                lambda_e=lambda_e)
+    return rows, H
+
+
+def _check_all(wide, slim, rows, H, extra=()):
     for name, x in wide.items():
         _check(name, x, (rows, H))
     for name, x in slim.items():
         _check(name, x, (rows, 1))
-    if len({x.device for x in (*wide.values(), *slim.values())}) != 1:
+    tensors = (*wide.values(), *slim.values(), *extra)
+    if len({x.device for x in tensors}) != 1:
         raise ValueError("all operands must be on one CUDA device")
-    out = torch.empty_like(delta)
-    lib = _load()
+
+
+def _launch(name, delta, *args):
+    """Call kernel ``name``'s entry point on the current stream of
+    ``delta``'s device; tensors pass as device pointers."""
+    fn = _load(name)
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pgd_epoch_f32(
-            delta.data_ptr(), eta.data_ptr(), pi.data_ptr(),
-            pow_nom.data_ptr(), tau24.data_ptr(), price.data_ptr(),
-            lo.data_ptr(), ub.data_ptr(), lr.data_ptr(), temp.data_ptr(),
-            lambda_e.data_ptr(), out.data_ptr(), rows, H, int(iters),
-            int(proj_iters), stream)
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
     if err != 0:
-        raise RuntimeError(f"pgd_epoch kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# ------------------------------------------------------------- kernel #1
+
+def pgd_epoch_cuda(delta, eta, pi, pow_nom, tau24, price, lo, ub, lr, temp,
+                   lambda_e, *, iters: int, proj_iters: int = 50
+                   ) -> torch.Tensor:
+    """Launch the fused epoch. delta/eta/pi/pow_nom/lo/ub: (rows, H) with
+    H <= 32; tau24/price/lr/temp/lambda_e: (rows, 1). All float32,
+    contiguous, on one CUDA device. Returns the new delta (rows, H)."""
+    rows, H = _rows_h(delta)
+    _check_all(dict(delta=delta, eta=eta, pi=pi, pow_nom=pow_nom, lo=lo,
+                    ub=ub),
+               dict(tau24=tau24, price=price, lr=lr, temp=temp,
+                    lambda_e=lambda_e), rows, H)
+    out = torch.empty_like(delta)
+    _launch("pgd_epoch", delta, delta, eta, pi, pow_nom, tau24, price, lo, ub,
+            lr, temp, lambda_e, out, rows, H, int(iters), int(proj_iters))
     pgd_epoch_cuda.launches += 1
     return out
 
@@ -160,3 +204,139 @@ def epoch_bytes(rows: int, H: int) -> int:
     """Bytes the epoch must move: 6 wide and 5 slim float32 inputs read
     once, one wide float32 output written once."""
     return 4 * rows * (7 * H + 5)
+
+
+# ------------------------------------------------------------- kernel #2
+
+def _members(x, rows, H):
+    """(K, n) of a member stack (B, K, n, H) with B * n = rows."""
+    if x.dim() == 4 and x.shape[0] * x.shape[2] == rows and x.shape[3] == H:
+        return x.shape[1], x.shape[2]
+    raise ValueError(f"member stack: (B, K, n, {H}) with B * n = {rows} "
+                     f"expected, got {tuple(x.shape)}")
+
+
+def pgd_epoch_ens_cuda(delta, eta_e, pi, pow_e, tau24, price, lo, ub, lr,
+                       temp, lambda_e, risk_s, *, iters: int,
+                       proj_iters: int = 50) -> torch.Tensor:
+    """Launch the CVaR ensemble epoch. delta/pi/lo/ub: (rows, H), H <= 32;
+    eta_e/pow_e: member stacks (B, K, n, H) with B * n = rows, K <= 32,
+    read in place; tau24/price/lr/temp/lambda_e/risk_s:
+    (rows, 1). All float32, contiguous, on one CUDA device. Returns the new
+    delta (rows, H)."""
+    rows, H = _rows_h(delta)
+    _check_all(dict(delta=delta, pi=pi, lo=lo, ub=ub),
+               dict(tau24=tau24, price=price, lr=lr, temp=temp,
+                    lambda_e=lambda_e, risk_s=risk_s), rows, H,
+               extra=(eta_e, pow_e))
+    K, n = _members(eta_e, rows, H)
+    if not 1 <= K <= MAX_MEMBERS:
+        raise ValueError(f"the kernel takes K <= {MAX_MEMBERS} members, got "
+                         f"{K}")
+    for name, x in (("eta_e", eta_e), ("pow_e", pow_e)):
+        _check(name, x, tuple(eta_e.shape))
+    out = torch.empty_like(delta)
+    _launch("pgd_epoch_ens", delta, delta, eta_e, pi, pow_e, tau24, price, lo,
+            ub, lr, temp, lambda_e, risk_s, out, rows, H, n, K, int(iters),
+            int(proj_iters))
+    pgd_epoch_ens_cuda.launches += 1
+    return out
+
+
+pgd_epoch_ens_cuda.launches = 0
+
+
+def ens_epoch_flops(rows: int, H: int, K: int, iters: int,
+                    proj_iters: int = 50) -> int:
+    """FP32 operations of one ensemble epoch as ``csrc/pgd_epoch_ens.cu``
+    performs them (counted as ``epoch_flops``; the member weights, which
+    every lane repeats alike or lane k forms for member k, count once a
+    row):
+
+    per member, hour and step: pow 1, softmax 4, the two cost products 2,
+    the two anchored accumulations 6;
+    per hour and step: pi d tau24 2, eta_w and w_w 2, grad 5, z 2, final
+    clip 3, and 3 per bisection step;
+    per member, row and step: the four reductions 4 (H - 1), the cost 3,
+    and the member weights 12 (mean 1, deviation 3, logit 3, max 1,
+    exponential 2, sum 1, weight 1);
+    per row and step: the mean and scale 3, and the projection's scalar
+    work as in ``epoch_flops``; per row once: 2 (H - 1)."""
+    P = proj_iters
+    per_hour = 13 * K + 14 + 3 * P
+    per_row_step = K * (4 * (H - 1) + 15) + 3 \
+        + (2 + P) * (H - 1) + 3 * P + 4
+    return rows * (iters * (per_hour * H + per_row_step) + 2 * (H - 1))
+
+
+def ens_epoch_shuffles(rows: int, K: int, iters: int,
+                       proj_iters: int = 50) -> int:
+    """Warp-shuffle instructions of one ensemble epoch: per step four
+    five-stage reductions a member, the bracket min and max and one sum per
+    bisection step; once per epoch the box terms."""
+    return rows * 5 * (iters * (4 * K + 2 + proj_iters) + 2)
+
+
+def ens_epoch_bytes(rows: int, H: int, K: int) -> int:
+    """Bytes the ensemble epoch must move: 4 wide, 2 K-member wide and 6
+    slim float32 inputs read once, one wide output written once."""
+    return 4 * rows * ((5 + 2 * K) * H + 6)
+
+
+# ------------------------------------------------------------- kernel #3
+
+def joint_step_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+                    u_pow_cap, capacity, price, lr_d, temp, lambda_e, *,
+                    drop_limit: float, proj_iters: int = 50):
+    """Launch one joint step. d/eta/pi/pow_nom/u_if/u_if_q/ratio: (rows, H)
+    with H <= 32; s/tau/u_pow_cap/capacity/price/lr_d/temp/lambda_e:
+    (rows, 1). All float32, contiguous, on one CUDA device. Returns
+    (d' (rows, H), g_s (rows, 1))."""
+    rows, H = _rows_h(d)
+    _check_all(dict(d=d, eta=eta, pi=pi, pow_nom=pow_nom, u_if=u_if,
+                    u_if_q=u_if_q, ratio=ratio),
+               dict(s=s, tau=tau, u_pow_cap=u_pow_cap, capacity=capacity,
+                    price=price, lr_d=lr_d, temp=temp, lambda_e=lambda_e),
+               rows, H)
+    d_out = torch.empty_like(d)
+    gs_out = torch.empty_like(s)
+    # the reference compares float32 ub with the float32 value of
+    # -drop_limit + 1e-9
+    thr = float(np.float32(-float(drop_limit) + 1e-9))
+    _launch("joint_step", d, d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+            u_pow_cap, capacity, price, lr_d, temp, lambda_e, d_out, gs_out,
+            rows, H, float(np.float32(drop_limit)), thr, int(proj_iters))
+    joint_step_cuda.launches += 1
+    return d_out, gs_out
+
+
+joint_step_cuda.launches = 0
+
+
+def joint_step_flops(rows: int, H: int, proj_iters: int = 50) -> int:
+    """FP32 operations of one joint step as ``csrc/joint_step.cu`` performs
+    them (counted as ``epoch_flops``):
+
+    per hour: the box 10 and its feasibility compare 1, pow 5, softmax 4,
+    gcoef 4, g_d 1, the g_s term 2, z 2, final clip 3, and 3 per bisection
+    step;
+    per row: tau + s, t24 and tau_s / 24 4, the feasibility compares 2,
+    g_s / 24 1, the reductions (sum ub, softmax max and sum, g_s, box max
+    and min, bracket min and max, one sum per bisection step)
+    (8 + P) (H - 1), and the projection's 3 P + 4 scalar ops."""
+    P = proj_iters
+    return rows * ((32 + 3 * P) * H + (8 + P) * (H - 1) + 3 * P + 11)
+
+
+def joint_step_shuffles(rows: int, proj_iters: int = 50) -> int:
+    """Warp-shuffle instructions of one joint step: eight five-stage
+    reductions (sum ub, softmax max and sum, g_s, box max and min, bracket
+    min and max) and one per bisection step (the feasibility vote is not a
+    shuffle)."""
+    return rows * 5 * (8 + proj_iters)
+
+
+def joint_step_bytes(rows: int, H: int) -> int:
+    """Bytes one joint step must move: 7 wide and 8 slim float32 inputs
+    read once, one wide and one slim output written once."""
+    return 4 * rows * (8 * H + 9)

@@ -1,15 +1,17 @@
-"""Dispatcher for the fused VCC PGD epoch.
+"""Dispatchers for the VCC PGD kernels.
 
-Counterpart of ``repro.kernels.vcc_pgd.ops.pgd_epoch`` (plain problems; the
-CVaR-ensemble epoch is a later slice). It lays a ``core.vcc.VCCProblem`` out
-in the kernel's operands and picks the route by where the tensors lie: a
-CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
-version. There is no fallback from one to the other.
+Counterparts of ``repro.kernels.vcc_pgd.ops.pgd_epoch`` and ``joint_step``.
+They lay a ``core.vcc.VCCProblem`` out in the kernels' operands and pick the
+route by where the tensors lie: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to the plain version. There is no fallback from one to
+the other.
 
-Batching: the problem's leading axes (the scenario x seed batch) and its
-cluster axis flatten into the kernel's row axis, (B * n, H). Per-rollout
-scalars (``temp``, ``lambda_e``) become per-row (rows, 1) operands, as
-``pgd_epoch_pallas`` broadcasts them, so every rollout keeps its own value.
+Batching: for the kernels, the problem's leading axes (the scenario x seed
+batch) and its cluster axis flatten into the row axis, (B * n, H); the
+plain versions take the leading axes as they are. Per-rollout scalars
+(``temp``, ``lambda_e``, ``risk_s``) become per-row (..., n, 1) operands,
+as the TPU kernels broadcast them, so every rollout keeps its own value.
+Ensemble member stacks (B, K, n, H) are handed over where they lie.
 """
 from __future__ import annotations
 
@@ -19,10 +21,28 @@ from repro_torch.kernels.vcc_pgd import kernel as _kernel
 from repro_torch.kernels.vcc_pgd import ref as _ref
 
 
-def _rows(x, shape) -> torch.Tensor:
-    """Broadcast to ``shape`` (..., n, k) and flatten to (rows, k)."""
-    x = torch.as_tensor(x, dtype=torch.float32)
-    return x.expand(shape).reshape(-1, shape[-1]).contiguous()
+def _layout(delta):
+    """How operands reach the route ``delta``'s device picks: (on_card,
+    lay). ``lay(x, shape)`` broadcasts ``x`` to ``shape``; for the kernels
+    it flattens the leading axes and the cluster axis into contiguous
+    (rows, k), the plain versions take the leading axes as they are.
+    A CUDA tensor goes to the kernels, a CPU tensor to the plain versions,
+    anything else raises."""
+    dev = delta.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no vcc_pgd route for device {dev}")
+    on_card = dev.type == "cuda"
+
+    def lay(x, shape):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev).expand(shape)
+        return x.reshape(-1, shape[-1]).contiguous() if on_card else x
+
+    return on_card, lay
+
+
+def _per_rollout(lay, x, slim):
+    """A per-rollout scalar of shape (...) as a per-row (..., n, 1)."""
+    return lay(torch.as_tensor(x)[..., None, None], slim)
 
 
 def pgd_epoch(prob, delta, mu, lo, ub, lr_eff, temp, iters: int,
@@ -30,25 +50,55 @@ def pgd_epoch(prob, delta, mu, lo, ub, lr_eff, temp, iters: int,
     """``iters`` fused PGD steps for a (possibly batched) VCCProblem.
 
     delta/lo/ub: (..., n, H); mu: (..., n_dc); lr_eff: (..., n, 1);
-    temp: per-rollout, shape (...). Returns the new delta (..., n, H)."""
+    temp: per-rollout, shape (...). Returns the new delta (..., n, H).
+    A problem carrying a forecast ensemble (``prob.eta_ens`` (..., K, n, H))
+    takes the CVaR ensemble epoch at its ``risk_beta``."""
     shape = delta.shape
     slim = shape[:-1] + (1,)
-    dev = delta.device
+    on_card, lay = _layout(delta)
     price = prob.lambda_p[..., None] + torch.gather(mu, -1, prob.campus)
-    args = [_rows(x, shape) for x in (delta, prob.eta, prob.pi,
-                                      prob.pow_nom)]
-    args += [_rows(prob.tau[..., None] / 24.0, slim),
-             _rows(price[..., None], slim)]
-    args += [_rows(lo, shape), _rows(ub, shape), _rows(lr_eff, slim)]
-    temp = _rows(torch.as_tensor(temp, device=dev)[..., None, None], slim)
-    lame = _rows(torch.as_tensor(prob.lambda_e, device=dev)[..., None, None],
-                 slim)
-    if dev.type == "cuda":
-        out = _kernel.pgd_epoch_cuda(*args, temp, lame, iters=int(iters),
-                                     proj_iters=proj_iters)
-    elif dev.type == "cpu":
-        out = _ref.pgd_epoch_ref(*args, temp=temp, lambda_e=lame,
-                                 iters=int(iters), proj_iters=proj_iters)
+    d, pi, lo, ub = (lay(x, shape) for x in (delta, prob.pi, lo, ub))
+    tau24, price, lr = (lay(x, slim) for x in (prob.tau[..., None] / 24.0,
+                                               price[..., None], lr_eff))
+    scal = dict(temp=_per_rollout(lay, temp, slim),
+                lambda_e=_per_rollout(lay, prob.lambda_e, slim))
+    if prob.eta_ens is None:
+        eta, pow_nom = lay(prob.eta, shape), lay(prob.pow_nom, shape)
+        fn = _kernel.pgd_epoch_cuda if on_card else _ref.pgd_epoch_ref
     else:
-        raise ValueError(f"no pgd_epoch route for device {dev}")
+        # the member stacks go as they lie: the kernel reads them through
+        # their member stride, so nothing is re-laid out per launch
+        eta, pow_nom = prob.eta_ens.contiguous(), prob.pow_nom_ens.contiguous()
+        if on_card:     # the kernel takes (B, K, n, H): B = 1 if unbatched
+            eta, pow_nom = (x.reshape((-1,) + x.shape[-3:])
+                            for x in (eta, pow_nom))
+        scal["risk_s"] = _per_rollout(
+            lay, _ref.cvar_sharpness(prob.risk_beta), slim)
+        fn = _kernel.pgd_epoch_ens_cuda if on_card else _ref.pgd_epoch_ens_ref
+    out = fn(d, eta, pi, pow_nom, tau24, price, lo, ub, lr, **scal,
+             iters=int(iters), proj_iters=proj_iters)
     return out.reshape(shape)
+
+
+def joint_step(prob, delta, s, mu, lr_d, temp, proj_iters: int = 50):
+    """One fused joint spatio-temporal step for a (possibly batched)
+    VCCProblem: temporal bounds recomputed from the shifted budget tau + s,
+    the delta gradient and exact projection, and the per-cluster shift
+    gradient. delta (..., n, H); s (..., n); mu (..., n_dc); lr_d
+    (..., n, 1); temp per-rollout (...). Returns (delta', g_s (..., n))."""
+    shape = delta.shape
+    slim = shape[:-1] + (1,)
+    on_card, lay = _layout(delta)
+    price = prob.lambda_p[..., None] + torch.gather(mu, -1, prob.campus)
+    fn = _kernel.joint_step_cuda if on_card else _ref.joint_step_arrays
+    d2, g_s = fn(
+        lay(delta, shape), lay(s[..., None], slim),
+        *(lay(x, shape) for x in (prob.eta, prob.pi, prob.pow_nom)),
+        lay(prob.tau[..., None], slim),
+        *(lay(x, shape) for x in (prob.u_if, prob.u_if_q, prob.ratio)),
+        *(lay(x[..., None], slim) for x in (prob.u_pow_cap, prob.capacity,
+                                             price)),
+        lay(lr_d, slim), _per_rollout(lay, temp, slim),
+        _per_rollout(lay, prob.lambda_e, slim),
+        drop_limit=float(prob.drop_limit), proj_iters=proj_iters)
+    return d2.reshape(shape), g_s.reshape(shape[:-1])

@@ -1,5 +1,5 @@
 """Batched fleet rollout engine over the staged core (port of
-``repro.sim.engine``, main path).
+``repro.sim.engine``, without sharding).
 
 * ``SimConfig``        — static shapes + solver knobs; everything dynamic
   (prices, risk, weather, outages) lives in ``SimParams`` tensors.
@@ -26,8 +26,9 @@ from repro_torch.sim.ledger import DayMetrics, init_ledger, ledger_update
 
 @dataclass(frozen=True)
 class SimConfig:
-    """Static structure (shapes + solver knobs). The graph flags must keep
-    their defaults in this slice (``stages.make_day_step`` raises)."""
+    """Static structure (shapes + solver knobs). ``streaming``,
+    ``telemetry`` and ``mpc`` must keep their defaults
+    (``stages.make_day_step`` raises)."""
     n_clusters: int = 16
     n_campuses: int = 4
     n_zones: int = 4

@@ -1,5 +1,6 @@
 """Reduce batched rollouts into per-scenario summary tables (port of
-``repro.sim.report``: ``scenario_rows`` and ``format_table``).
+``repro.sim.report``: ``scenario_rows``, the mobility- and risk-sweep rows,
+and ``format_table``).
 
 Input: a batched Ledger whose leading axis is scenario-major x seed-minor
 (the layout ``scenarios.build_batch`` produces).
@@ -40,11 +41,50 @@ def scenario_rows(ledgers: Ledger, scenario_names: Sequence[str],
     return rows
 
 
+RISK_COLUMNS = ("carbon_saved_pct", "flex_completion_pct",
+                "flex_within_24h_pct", "delayed_cpu_h_per_day")
+
+MOBILITY_COLUMNS = ("carbon_saved_pct", "carbon_vs_sequential_pct",
+                    "peak_reduction_pct", "flex_within_24h_pct")
+
+
+def mobility_sweep_rows(led_joint: Ledger, led_seq: Ledger,
+                        scenario_names: Sequence[str], n_seeds: int
+                        ) -> List[Dict[str, float]]:
+    """Rows of the mobility sweep: the ledger summaries of the joint
+    (``SimConfig(joint_spatial=True)``) rollouts, plus the carbon delta
+    against the sequential pre-shift rollouts of the same batch.
+    ``carbon_vs_sequential_pct > 0`` means the joint solve emitted less."""
+    rows = scenario_rows(led_joint, scenario_names, n_seeds)
+    seq = scenario_rows(led_seq, scenario_names, n_seeds)
+    for r, q in zip(rows, seq):
+        base = max(abs(q["carbon_kg"]), 1e-9)
+        r["carbon_vs_sequential_pct"] = \
+            100.0 * (q["carbon_kg"] - r["carbon_kg"]) / base
+        r["sequential_carbon_kg"] = q["carbon_kg"]
+    return rows
+
+
+def risk_sweep_rows(ledgers_by_k: Dict[int, Ledger],
+                    scenario_names: Sequence[str], n_seeds: int
+                    ) -> List[Dict[str, float]]:
+    """Flatten a {n_members: batched Ledger} sweep (one batch per ensemble
+    size K over the risk-sweep betas x seeds) into rows tagged with
+    ``n_members``; render with ``format_table(rows, RISK_COLUMNS)``."""
+    rows: List[Dict[str, float]] = []
+    for k, led in sorted(ledgers_by_k.items()):
+        for r in scenario_rows(led, scenario_names, n_seeds):
+            r["n_members"] = k
+            rows.append(r)
+    return rows
+
+
 def format_table(rows: List[Dict[str, float]],
                  columns: Sequence[str] = COLUMNS) -> str:
     """Fixed-width ASCII table: one line per scenario."""
     name_w = max([len("scenario")] + [len(r["scenario"]) for r in rows]) + 2
     headers = {"carbon_saved_pct": "carbonSaved%",
+               "carbon_vs_sequential_pct": "vsSeq%",
                "peak_reduction_pct": "peakRed%",
                "flex_within_24h_pct": "flex<24h%",
                "flex_completion_pct": "flexDone%",

@@ -1,5 +1,6 @@
 """Declarative scenario perturbations composable onto the synthetic fleet
-(port of ``repro.sim.scenarios``, the default library).
+(port of ``repro.sim.scenarios``: the default, mobility-sweep and
+risk-sweep libraries).
 
 A Scenario = a name + scalar overrides (carbon price, risk, mobility) + a
 tuple of Perturbation objects, each of which edits the numpy multiplier
@@ -103,6 +104,17 @@ class DemandSurge(Perturbation):
         sched["arrival_scale"][w] *= self.scale
 
 
+@dataclass(frozen=True)
+class CapacitySqueeze(Perturbation):
+    """Fleetwide machine-capacity derate (tight-supply regime: temporal
+    shaping bounds bind, so spatially exporting work matters)."""
+    scale: float = 0.75
+
+    def apply(self, sched, rng, cfg):
+        w = self.window(sched["cap_scale"].shape[0])
+        sched["cap_scale"][w] *= self.scale
+
+
 # ----------------------------------------------------------------- scenario
 
 @dataclass(frozen=True)
@@ -204,4 +216,52 @@ def default_library(days: int = 14) -> List[Scenario]:
                   ClusterOutage(start=half, length=max(days // 4, 1),
                                 frac=0.2),
                   DemandSurge(start=half, scale=1.4))),
+    ]
+
+
+MOBILITY_SWEEP = (0.0, 0.1, 0.3, 0.6)
+
+
+def mobility_sweep_library(days: int = 14,
+                           mobilities: Sequence[float] = MOBILITY_SWEEP
+                           ) -> List[Scenario]:
+    """The spatial-mobility sweep (the joint spatio-temporal path):
+    mobility swept as data under a zone-0 renewable drought, a fleetwide
+    demand surge and a capacity squeeze, the supply-tight regime where
+    exporting work (not only delaying it) saves carbon. mobility 0 is the
+    temporal-only control row. Run with ``SimConfig(joint_spatial=True)``
+    and against the same batch under ``joint_spatial=False``
+    (``report.mobility_sweep_rows``)."""
+    return [
+        Scenario(f"mobility{int(round(100 * m)):03d}",
+                 f"{m:.0%} of flexible work location-flexible under a "
+                 "zone-0 drought + surge + capacity squeeze",
+                 (RenewableDrought(depth=0.8, zones=(0,)),
+                  DemandSurge(scale=1.3),
+                  CapacitySqueeze(scale=0.75)),
+                 lambda_e=1.0, lambda_p=0.02, mobility=m)
+        for m in mobilities
+    ]
+
+
+RISK_BETAS = (0.5, 0.9, 0.99)
+RISK_MEMBERS = (1, 8, 32)
+
+
+def risk_sweep_library(days: int = 14,
+                       betas: Sequence[float] = RISK_BETAS
+                       ) -> List[Scenario]:
+    """The risk sweep: CVaR tail fraction beta swept as data under a
+    forecast-hostile backdrop (drought + demand surge in the second half).
+    Pair it with ``SimConfig(n_members=K)`` for each K in ``RISK_MEMBERS``
+    (K = 1 makes every beta the same point-forecast path)."""
+    half = max(days // 2, 1)
+    backdrop = (RenewableDrought(start=half, depth=0.6),
+                DemandSurge(start=half, scale=1.4))
+    return [
+        Scenario(f"risk_beta{int(round(100 * b)):02d}",
+                 f"CVaR beta={b}: optimize the worst {b:.0%} of forecast "
+                 "members under drought + surge",
+                 backdrop, lambda_e=1.0, risk_beta=b)
+        for b in betas
     ]

@@ -27,6 +27,23 @@ def imported_modules(path: Path):
 
 def test_sources_found():
     assert len(SOURCES) >= 20
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    # the risk-aware joint slice's modules are among them
+    assert {"repro_torch/core/risk.py", "repro_torch/core/spatial.py",
+            "repro_torch/core/solver.py", "repro_torch/sim/report.py",
+            "repro_torch/kernels/vcc_pgd/kernel.py"} <= names
+
+
+@pytest.mark.parametrize("name", ("pgd_epoch", "pgd_epoch_ens",
+                                  "joint_step"))
+def test_every_kernel_source_is_in_the_package(name):
+    """Each kernel the dispatcher can launch is built from a source of the
+    package, and the build hash covers the header the sources share."""
+    from repro_torch.kernels.vcc_pgd import kernel
+    src = kernel.SOURCES[name]
+    assert src.is_file() and src.parent == kernel.CSRC
+    assert '#include "pgd_common.cuh"' in src.read_text()
+    assert all(h.is_file() for h in kernel.HEADERS)
 
 
 @pytest.mark.parametrize("path", SOURCES,

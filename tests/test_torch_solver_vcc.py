@@ -105,7 +105,7 @@ def test_contended_solve_and_batch_equal_per_problem():
                                rtol=1e-4, atol=1e-4)
     batch = vcc.VCCProblem(**{
         f: torch.stack([getattr(q, f) for _, q in pairs])
-        for f in vcc.VCCProblem.__dataclass_fields__ if f != "drop_limit"},
+        for f in vcc.VCCProblem.__dataclass_fields__ if f not in ("drop_limit", *convert.ENSEMBLE)},
         drop_limit=p.drop_limit)
     both = vcc.solve_vcc(batch, outer_iters=6, inner_iters=20, device="cpu")
     for b, (_, q) in enumerate(pairs):

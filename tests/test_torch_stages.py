@@ -135,7 +135,7 @@ def test_stages_match_reference(ref):
         jfc, eta_fc, jm, js.queue, js.u_pow_cap * xs["cap_scale"], cap_day,
         js.campus, js.campus_limit * xs["campus_scale"], jp.lambda_e,
         jp.lambda_p, jp.mobility)
-    tprob, tsol = stages.optimize_stage(
+    tprob, tsol, _ = stages.optimize_stage(
         {k: convert.tensor(np.asarray(v)) for k, v in jfc.items()},
         convert.tensor(np.asarray(eta_fc)), _model(jm), ts.queue,
         ts.u_pow_cap * txs["cap_scale"], tp.truth["capacity"]
@@ -312,12 +312,16 @@ def test_batched_step_equals_per_rollout_steps(ref):
                                    ob.sol.delta.numpy(), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("flag", [dict(joint_spatial=True),
-                                  dict(n_members=4), dict(streaming=True),
+@pytest.mark.parametrize("flag", [dict(joint_spatial=True, mpc=True),
+                                  dict(n_members=4, telemetry=True),
+                                  dict(streaming=True),
                                   dict(telemetry=True), dict(mpc=True)])
 def test_make_day_step_refuses_unported_flags(flag):
+    """Streaming, telemetry and MPC are not ported, alone or beside the
+    joint spatial solve and forecast ensembles (which are)."""
     with pytest.raises(NotImplementedError):
         stages.make_day_step(stages.StageConfig(**flag))
+    stages.make_day_step(stages.StageConfig(joint_spatial=True, n_members=4))
 
 
 def test_entry_points_default_to_cuda():

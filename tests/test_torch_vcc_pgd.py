@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels.vcc_pgd import kernel as jkernel
 from repro.kernels.vcc_pgd import ref as jref
+from repro_torch import convert
 from repro_torch.core import solver, vcc
 from repro_torch.kernels.vcc_pgd import kernel, ops, ref
 
@@ -136,7 +137,7 @@ def test_dispatcher_keeps_per_rollout_scalars():
     probs = [_problem(5, 0.1), _problem(6, 2.0)]
     batch = vcc.VCCProblem(**{
         f: torch.stack([getattr(p, f) for p in probs])
-        for f in vcc.VCCProblem.__dataclass_fields__ if f != "drop_limit"},
+        for f in vcc.VCCProblem.__dataclass_fields__ if f not in ("drop_limit", *convert.ENSEMBLE)},
         drop_limit=1.0)
 
     def epoch(p):
