@@ -6,16 +6,21 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``nvcc`` compiles the three kernels of the port from ``csrc/``
-   into ``build/`` (one compiler process per source, all started together,
-   with ``-Xptxas -v``: registers and spills);
+2. build: ``nvcc`` compiles the five kernels of the port from their
+   ``csrc/`` into ``build/`` (one compiler process per source, all started
+   together, with ``-Xptxas -v``: registers and spills);
 3. kernels against their plain versions on the card, at three row counts
    each (ragged, the path's, fleet scale): the PGD epoch (#1) and the CVaR
    ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3).
    Max error, conservation residual, bound violations, kernel and plain
    times (CUDA events, median of 20 after warm-up; fewer for the slowest
    plain runs) and the least time the card could take for the same work;
-   and #2 over identical members against #1;
+   and #2 over identical members against #1. Then flash attention (#4) at
+   the serving path's prefill and decode shapes of Zamba2-7B and
+   Qwen3-0.6B, a ragged length, and GQA, window and softcap cases, timed
+   beside ``scaled_dot_product_attention``; and the GLA scan (#5) at
+   Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
+   and in RWKV6-7B's per-channel and bonus + strict modes;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
@@ -30,11 +35,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    rows against the same batch under ``joint_spatial=False``, counted
    apart), the joint step's time split from the s projection's, and one
    profiled day;
-6. the golden configuration, and the slice configuration at golden size,
+6. serving path, carbon-aware serving at full published width in bf16
+   (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
+   then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
+   tokens each, with exact launch counts of #4 and #5, prefill and
+   per-token times, tokens/s and peak memory; a full-width check of a
+   decode step's logits against the prefill of the same tokens; one
+   profiled Zamba2 decode step;
+7. the golden configuration, and the slice configuration at golden size,
    on the card (kernels) against the CPU (plain versions), within the
    parity tests' end-to-end tolerances; at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
-7. one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+   and the serving smoke configs in float32, cuda against cpu (logits of
+   prefill and 4 decode steps, greedy tokens);
+8. one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and without the repo's
@@ -55,6 +69,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
+BF16_TENSOR_PER_S = 989e12           # H100 SXM dense bf16 tensor rate
 KERNEL_TOL = 1e-4                    # max |kernel - plain| on delta
 JOINT_TOL = 1e-5                     # one joint step: d', and x max|g_s|
 IDENTICAL_TOL = 1e-6                 # #2 over identical members vs #1
@@ -124,14 +139,24 @@ def phase_device():
     return name, props.multi_processor_count, clock_mhz
 
 
+def kernel_builds():
+    """(name, build function) of every kernel source of the port."""
+    from functools import partial
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    return [(k, partial(pgd_kernel.build, k)) for k in pgd_kernel.SOURCES] \
+        + [("flash_attention", fa_kernel.build),
+           ("gla_scan", gla_kernel.build)]
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(pgd_kernel.SOURCES)) as pool:
-        futs = {k: pool.submit(pgd_kernel.build, k, verbose=True)
-                for k in pgd_kernel.SOURCES}
+    todo = kernel_builds()
+    with ThreadPoolExecutor(len(todo)) as pool:
+        futs = {k: pool.submit(fn, verbose=True) for k, fn in todo}
         results = {k: f.result() for k, f in futs.items()}
     for k, (path, secs, log) in results.items():
         print(f"[build] {k}: {path.relative_to(ROOT)} in {secs:.2f} s")
@@ -182,8 +207,13 @@ class Card:
         self.fp32_per_s = sms * 128 * 2 * clock_mhz * 1e6
         self.shfl_per_s = sms * clock_mhz * 1e6
 
-    def bound(self, flops, nbytes):
-        ops_ms = 1e3 * flops / self.fp32_per_s
+    def bound(self, flops, nbytes, dtype=torch.float32):
+        """The larger of the bytes over the HBM rate and the operations over
+        the peak rate for ``dtype``: the bf16 tensor rate for bf16 data,
+        the FP32 rate for float32."""
+        rate = BF16_TENSOR_PER_S if dtype == torch.bfloat16 \
+            else self.fp32_per_s
+        ops_ms = 1e3 * flops / rate
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                        else "bytes"), ops_ms, bytes_ms
@@ -446,6 +476,227 @@ def phase_joint_kernel(card, drop=0.8):
     return record
 
 
+# ------------------------------------------------- phase 3: kernels #4, #5
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # as the TPU test
+GLA_RTOL = 1e-4                       # of max|o| and of max|state|
+# the serving path's shapes: 4 prompts of 1,024 tokens, 32 decoded tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_ROUNDS = 4, 1024, 32, 2
+SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_GEN + 8
+DECODE_POS = SERVE_PROMPT + SERVE_GEN // 2   # a mid-generation decode step
+
+
+def flash_cases():
+    """(label, B, Sq, Sk, N, K, H, dtype, mask options): the prefill and
+    decode calls of Zamba2-7B's shared block (32 heads of 112) and
+    Qwen3-0.6B's layers (16 query heads on 8 KV heads of 128), a ragged
+    length, float32, and Gemma2-9B's widths (16 on 8 heads of 256) with its
+    softcap of 50 and a 512-key window. The decode shapes run in float32
+    too: there the 2e-5 limit is far below the ~1e-3 that one key too many
+    or too few (an off-by-one ``length`` or ``q_offset``) moves an output
+    row by, which bfloat16's 2e-2 limit would let through."""
+    B, P, M, pos = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, DECODE_POS
+    bf, f = torch.bfloat16, torch.float32
+    dec = dict(causal=True, q_offset=pos, length=pos + 1)
+    return [
+        ("zamba2 prefill", B, P, P, 32, 32, 112, bf, dict(causal=True)),
+        ("zamba2 decode", B, 1, M, 32, 32, 112, bf, dec),
+        ("qwen3 prefill (GQA)", B, P, P, 16, 8, 128, bf, dict(causal=True)),
+        ("qwen3 decode (GQA)", B, 1, M, 16, 8, 128, bf, dec),
+        ("zamba2 ragged", B, 1000, 1000, 32, 32, 112, bf, dict(causal=True)),
+        ("zamba2 prefill float32", 1, 512, 512, 32, 32, 112, f,
+         dict(causal=True)),
+        ("zamba2 decode float32", B, 1, M, 32, 32, 112, f, dec),
+        ("qwen3 decode float32 (GQA)", B, 1, M, 16, 8, 128, f, dec),
+        ("gemma2 window + softcap", 2, P, P, 16, 8, 256, bf,
+         dict(causal=True, window=512, softcap=50.0)),
+        ("gemma2 decode window + softcap", 2, 1, M, 16, 8, 256, bf,
+         dict(dec, window=512, softcap=50.0)),
+    ]
+
+
+def sdpa_call(q, k, v, mask):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same inputs (heads-major views, GQA by ``enable_gqa``; an additive
+    mask where there is a cache length or a window); None where it cannot
+    compute the function (a softcap)."""
+    import torch.nn.functional as F
+    if mask.get("softcap") is not None:
+        return None
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if mask.get("length") is None and mask.get("window") is None:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=mask.get("causal", True), enable_gqa=gqa)
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    qpos = mask.get("q_offset", 0) + torch.arange(q.shape[1], device=q.device)
+    keep = fa_ref._mask(qpos, torch.arange(k.shape[1], device=q.device),
+                        causal=mask.get("causal", True),
+                        window=mask.get("window"), length=mask.get("length"))
+    add = torch.zeros(keep.shape, dtype=q.dtype, device=q.device
+                      ).masked_fill(~keep, float("-inf"))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add,
+                                                  enable_gqa=gqa)
+
+
+def phase_flash_kernel(card):
+    """Kernel #4 against its plain version (both called directly on CUDA
+    tensors), timed beside SDPA."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    dev = torch.device("cuda")
+    records = {}
+    for label, B, Sq, Sk, N, K, H, dt, mask in flash_cases():
+        g = torch.Generator(device=dev).manual_seed(Sq + Sk + H)
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
+                   for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+
+        def kern():
+            return fa_kernel.flash_attention_cuda(q, k, v, **mask)
+
+        def plain():
+            return fa_ref.attention_reference(q, k, v, **mask)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_TOL[dt]
+        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=10)
+        lib = sdpa_call(q, k, v, mask)
+        lib_ms = None if lib is None else cuda_ms(lib, lead=True)
+        pairs = {k: x for k, x in mask.items() if k != "softcap"}
+        flops = fa_kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
+        nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H,
+                                           q.element_size(), **pairs)
+        bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
+        print(f"[kernel] flash_attention {label}: B={B} Sq={Sq} Sk={Sk} "
+              f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: "
+              f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
+              f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms, library "
+              f"(scaled_dot_product_attention) "
+              + ("none (no softcap)" if lib_ms is None else
+                 f"{lib_ms:.4f} ms")
+              + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
+              f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
+              f"{bytes_ms:.4f} ms)", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"flash attention disagrees with plain: "
+                                 f"{label}, {err:.3e}")
+        records[label] = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+        del q, k, v, got, want
+    return records["zamba2 prefill"]
+
+
+def gla_cases():
+    """(label, B, S, H, K, V, dtype, mode, chunk, initial state):
+    Zamba2-7B's Mamba2 prefill (112 heads, state 64, head 64, chunk 256;
+    B and C shared by the heads), a ragged length, a prefill from a state,
+    a one-token scan from a state, float32; RWKV6-7B's widths (64 heads of
+    64, chunk 64) with per-channel decay, and with its bonus in the strict
+    mode."""
+    B, P = SERVE_BATCH, SERVE_PROMPT
+    bf, f = torch.bfloat16, torch.float32
+    return [
+        ("zamba2 mamba2 prefill", B, P, 112, 64, 64, bf, "scalar", 256,
+         False),
+        ("zamba2 ragged", B, 1000, 112, 64, 64, bf, "scalar", 256, False),
+        ("zamba2 from a state", B, P, 112, 64, 64, bf, "scalar", 256, True),
+        ("zamba2 one token from a state", B, 1, 112, 64, 64, bf, "scalar",
+         256, True),
+        ("zamba2 float32", 1, P, 112, 64, 64, f, "scalar", 256, True),
+        ("rwkv6 vector decay", 2, P, 64, 64, 64, bf, "vector", 64, False),
+        ("rwkv6 bonus + strict", 2, P, 64, 64, 64, bf, "rwkv", 64, True),
+    ]
+
+
+def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    if mode == "scalar":     # Mamba2: B, C shared by the heads (stride 0)
+        q, k = (n(B, S, 1, K).to(dt).expand(B, S, H, K) for _ in range(2))
+        ld, u = -0.7 * n(B, S, H).abs(), None
+    else:
+        q, k = n(B, S, H, K).to(dt), n(B, S, H, K).to(dt)
+        ld = -3.0 * n(B, S, H, K).abs()
+        u = n(H, K) if mode == "rwkv" else None
+    v = n(B, S, H, V).to(dt)
+    h0 = n(B, H, K, V) if init else None
+    return q, k, v, ld, u, h0
+
+
+def phase_gla_kernel(card):
+    """Kernel #5 against its plain version (both called directly on CUDA
+    tensors). The state is float32 and held to 1e-4 of max|state|; so is
+    a float32 output. A bf16 output rounds the same float32 sum on both
+    sides, so it is held to 1e-4 of max|o| plus one bf16 unit in the last
+    place of the plain value."""
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    from repro_torch.kernels.linear_scan import ref as gla_ref
+    dev = torch.device("cuda")
+    records = {}
+    for i, (label, B, S, H, K, V, dt, mode, chunk, init) in enumerate(
+            gla_cases()):
+        q, k, v, ld, u, h0 = gla_inputs(B, S, H, K, V, dt, mode, init, dev,
+                                        100 + i)
+        kw = dict(bonus=u, strict=mode == "rwkv", chunk=chunk,
+                  initial_state=h0)
+
+        def kern():
+            return gla_kernel.gla_cuda(q, k, v, ld, **kw)
+
+        def plain():
+            return gla_ref.gla_chunked(q, k, v, ld, **kw)
+
+        (o, hT), (wo, whT) = kern(), plain()
+        torch.cuda.synchronize()
+        err = (o.float() - wo.float()).abs()
+        o_scale = wo.float().abs().max().item()
+        ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
+        excess = (err - GLA_RTOL * o_scale
+                  - ulp * wo.float().abs()).max().item()
+        s_err = (hT - whT).abs().max().item()
+        s_scale = whT.abs().max().item()
+        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=5,
+                                                          warmup=1)
+        flops = gla_kernel.gla_flops(B, S, H, K, V, vec=mode != "scalar",
+                                     bonus=u is not None,
+                                     strict=mode == "rwkv", chunk=chunk)
+        nbytes = gla_kernel.gla_bytes(q, k, v, ld, bonus=u,
+                                      initial_state=h0)
+        bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
+        print(f"[kernel] gla_scan {label}: B={B} S={S} H={H} K={K} V={V} "
+              f"{str(dt)[6:]} {mode} chunk={chunk} (tile "
+              f"{gla_kernel.tile_rows(chunk)}) initial state {init}: "
+              f"max|o kernel-plain|={err.max().item():.3e} of max|o| "
+              f"{o_scale:.3e} (limit {GLA_RTOL:g} x max|o|"
+              + (" + 1 bf16 ulp" if ulp else "") + "), max|state "
+              f"kernel-plain|={s_err:.3e} of {s_scale:.3e} (limit "
+              f"{GLA_RTOL:g} x); kernel {ms:.4f} ms (device), plain "
+              f"{plain_ms:.4f} ms, library none (no single call); bound "
+              f"{bound_ms:.4f} ms by {by} (matmul flops {flops:.4g} -> "
+              f"{ops_ms:.4f} ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms)",
+              flush=True)
+        if not (excess <= 0.0 and s_err <= GLA_RTOL * s_scale):
+            raise AssertionError(f"gla scan disagrees with plain: {label}")
+        records[label] = {
+            "name": "gla_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/linear_scan/csrc/gla_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:71",
+            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+        del q, k, v, ld, o, wo
+    return records["zamba2 mamba2 prefill"]
+
+
 # ------------------------------------------------------------------ phase 4
 
 SOLVE_ROUNDS = 20                    # solve_vcc's dual-ascent rounds a day
@@ -536,9 +787,12 @@ def phase_main_path():
 
 
 def kernel_counters():
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     return (pgd_kernel.pgd_epoch_cuda, pgd_kernel.pgd_epoch_ens_cuda,
-            pgd_kernel.joint_step_cuda)
+            pgd_kernel.joint_step_cuda, fa_kernel.flash_attention_cuda,
+            gla_kernel.gla_cuda)
 
 
 def reset_counts():
@@ -547,25 +801,24 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches of kernels #1, #2, #3 since the last reset."""
+    """Launches of kernels #1 to #5 since the last reset."""
     return [k.launches for k in kernel_counters()]
 
 
-def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
-    """One more day under torch.profiler, after the counted run: the
-    device's busy share of the day's wall time and the ops that take it.
-    The full table goes to chiprun_out/<fname>."""
+OURS = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel",
+        "flash_attention_kernel", "gla_scan_kernel")
+
+
+def profile_call(fn, fname, what):
+    """``fn()`` once under torch.profiler: the device's busy share of its
+    wall time and the ops that take it; the full table goes to
+    chiprun_out/<fname>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch import sim
-    from repro_torch.sim import engine
-    step = sim.make_day_step(cfg)
-    xs = engine.day_xs(params, days - 1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, state, xs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -583,17 +836,19 @@ def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
                  and self_dev_us(e) > 0]
     launchers += [e for e in kernels if "at::native" not in e.key]
     top = sorted(launchers, key=self_dev_us, reverse=True)[:8]
-    print(f"[profile] one day step: wall {wall_ms:.1f} ms under the "
+    print(f"[profile] {what}: wall {wall_ms:.1f} ms under the "
           f"profiler, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%) in {sum(e.count for e in kernels)}"
           " kernel launches; device time by launcher: "
           + "; ".join(f"{e.key.split('(float')[0][:48]} "
                       f"{self_dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in top), flush=True)
-    ours = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel")
     for e in kernels:
-        if any(f"::{k}(" in e.key for k in ours):
-            print(f"[profile]   {e.key.split('(float')[0]}: "
+        for k in OURS:
+            if f"::{k}" not in e.key:
+                continue
+            name = e.key[e.key.index(f"::{k}") + 2:].split("(")[0]
+            print(f"[profile]   {name}: "
                   f"{self_dev_us(e) / 1e3:.3f} ms device over {e.count} "
                   f"launches, {self_dev_us(e) / e.count:.2f} us each",
                   flush=True)
@@ -603,6 +858,16 @@ def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
     out.mkdir(exist_ok=True)
     (out / fname).write_text(events.table(sort_by=sort_key, row_limit=40))
     return wall_ms, busy_ms
+
+
+def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
+    """One more day under torch.profiler, after the counted run."""
+    from repro_torch import sim
+    from repro_torch.sim import engine
+    step = sim.make_day_step(cfg)
+    xs = engine.day_xs(params, days - 1)
+    return profile_call(lambda: step(params, state, xs), fname,
+                        "one day step")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -707,9 +972,9 @@ def phase_slice_path():
     state, led_joint, counts, backlog, roll_s, last, bests = drive(
         cfg, "joint")
     want = [MAIN_DAYS * SOLVE_ROUNDS, MAIN_DAYS * SOLVE_ROUNDS,
-            MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS]
+            MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS, 0, 0]
     if counts != want:
-        raise AssertionError(f"the slice path launched kernels #1 / #2 / #3 "
+        raise AssertionError(f"the slice path launched kernels #1 to #5 "
                              f"{counts} times, expected {want}")
     # printed, not held: the golden-size slice below holds the verdicts
     # (non-zero and equal on both devices)
@@ -719,7 +984,7 @@ def phase_slice_path():
         initial_backlog=backlog)), flush=True)
     _, led_seq, seq_counts, _, _, _, _ = drive(
         slice_config(joint_spatial=False), "sequential (same batch)")
-    if seq_counts != [0, MAIN_DAYS * SOLVE_ROUNDS, 0]:
+    if seq_counts != [0, MAIN_DAYS * SOLVE_ROUNDS, 0, 0, 0]:
         raise AssertionError(f"the sequential run launched {seq_counts}")
 
     def sub(led, sl):
@@ -779,6 +1044,167 @@ def joint_step_split(prob, sol, params, reps: int = 3):
           f"best of {reps} x {JOINT_STEPS}): fused joint step {step_ms:.3f} "
           f"ms, s projection {proj_ms:.3f} ms", flush=True)
     return {"step_ms": step_ms, "proj_ms": proj_ms}
+
+
+# ------------------------------------------------- phase 6: serving path
+
+SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b")
+CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
+
+
+def launches_per_call(cfg):
+    """Launches of (#4, #5) in one prefill and in one decoded token: Zamba2
+    runs the scan once a Mamba2 layer in a prefill and its shared block
+    once a group in both; a dense model runs attention once a layer in
+    both."""
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        return (groups, cfg.num_layers), (groups, 0)
+    return (cfg.num_layers, 0), (cfg.num_layers, 0)
+
+
+def phase_serve():
+    """Carbon-aware serving at full published width on the card: both
+    models, exact launch counts, a decode-vs-prefill check, and a profiled
+    Zamba2 decode step. Returns the launches of #4 and #5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    totals = [0, 0]
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).config.replace(remat="none")
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda", seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[serve] {arch}: {n_params / 1e9:.3f} B parameters "
+              f"({cfg.dtype}), built on the card from seed 0 in "
+              f"{time.perf_counter() - t0:.2f} s; weights "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                    gen=SERVE_GEN, rounds=SERVE_ROUNDS, carbon_aware=True,
+                    device="cuda", model=model)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pre, tok = launches_per_call(cfg)
+        want = [SERVE_ROUNDS * (p + SERVE_GEN * t) for p, t in zip(pre, tok)]
+        print(f"[serve] {arch}: admitted batch per round {res.batches}; "
+              f"prefill ms per round "
+              f"{', '.join(f'{x:.1f}' for x in res.prefill_ms)}; decode ms "
+              f"per token per round "
+              f"{', '.join(f'{x:.2f}' for x in res.decode_ms)}; "
+              f"{res.tokens_per_s:.1f} tokens/s over {res.seconds:.2f} s "
+              f"(first round included); peak device memory {peak:.2f} GiB; "
+              f"launches of #4 / #5: {counts[3]} / {counts[4]} (expected "
+              f"{want[0]} / {want[1]}: {pre[0]} / {pre[1]} per prefill, "
+              f"{tok[0]} / {tok[1]} per token)", flush=True)
+        if counts != [0, 0, 0, *want]:
+            raise AssertionError(f"{arch}: serving launched kernels #1 to #5 "
+                                 f"{counts} times, expected "
+                                 f"{[0, 0, 0, *want]}")
+        for r, toks in enumerate(res.tokens):
+            if toks.shape != (res.batches[r], SERVE_GEN + 1) or not (
+                    (toks >= 0) & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"{arch}: round {r} tokens malformed")
+        totals[0] += counts[3]
+        totals[1] += counts[4]
+        decode_consistency(arch, cfg, model)
+        if cfg.family == "hybrid":
+            profile_decode(model)
+        del model
+        torch.cuda.empty_cache()
+    return totals
+
+
+def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
+    """The logits of a decode step after prefilling T - 1 tokens against
+    the prefill of all T tokens (no plain path runs), in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                         device="cuda")
+    with torch.inference_mode():
+        _, cache = model.prefill({"tokens": toks[:, :-1]}, T + 8)
+        dec, _ = model.decode_step(cache, toks[:, -1], T - 1)
+        full, _ = model.prefill({"tokens": toks}, T + 8)
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    gap = (dec - full).abs().max().item() / full.abs().max().item()
+    print(f"[serve] {arch}: decode step after a {T - 1}-token prefill vs "
+          f"the {T}-token prefill: max|logit gap| / max|logit| = {gap:.3e} "
+          f"(limit {CONSISTENCY_TOL:g}); logits {tuple(full.shape)}, finite",
+          flush=True)
+    if not gap <= CONSISTENCY_TOL:
+        raise AssertionError(f"{arch}: decode vs prefill gap {gap:.3e}")
+
+
+def profile_decode(model, B=SERVE_BATCH):
+    """One Zamba2 decode step under torch.profiler, after a prefill."""
+    toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
+                         device="cuda")
+    with torch.inference_mode():
+        _, cache = model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
+        tok = toks[:, -1]
+        model.decode_step(cache, tok, SERVE_PROMPT)    # warm
+
+        def step():
+            with torch.inference_mode():
+                model.decode_step(cache, tok, SERVE_PROMPT + 1)
+
+        profile_call(step, "profile_serve_decode.txt",
+                     f"one Zamba2-7B decode step (batch {B}, cache "
+                     f"{SERVE_MAX_SEQ})")
+
+
+def phase_serve_golden(gen=4):
+    """The serving smoke configs in float32: the same weights on the card
+    (kernels) and on the CPU (plain versions), logits of the prefill and
+    ``gen`` decode steps within 1e-4 of max|logit|, greedy tokens equal
+    wherever the CPU's top-2 margin exceeds that gap."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).smoke.replace(remat="none", dtype="float32")
+        cpu = build_model(cfg, "cpu", seed=3)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        kw = dict(smoke=True, batch=4, prompt_len=40,
+                  gen=gen, rounds=2, carbon_aware=True, keep_logits=True,
+                  verbose=False)
+        got = serve(arch, device="cuda", model=gpu, **kw)
+        want = serve(arch, device="cpu", model=cpu, **kw)
+        if got.batches != want.batches:
+            raise AssertionError(f"{arch}: admitted {got.batches} on cuda, "
+                                 f"{want.batches} on cpu")
+        worst, ties = 0.0, 0
+        for r in range(len(want.batches)):
+            for step, (g, w) in enumerate(zip(got.logits[r],
+                                              want.logits[r])):
+                gap = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                worst = max(worst, gap / scale)
+                if not gap <= 1e-4 * scale:
+                    raise AssertionError(f"{arch}: round {r} step {step} "
+                                         f"logit gap {gap:.3e} of {scale:.3e}")
+                top2 = torch.topk(w, 2, -1).values
+                decided = (top2[:, 0] - top2[:, 1]) > gap
+                same = got.tokens[r][:, step] == want.tokens[r][:, step]
+                if not same[decided].all():
+                    raise AssertionError(f"{arch}: round {r} step {step} "
+                                         "greedy tokens differ")
+                if not decided.all():
+                    ties += 1
+                    break
+        print(f"[serve-golden] {arch} smoke float32, cuda (kernels) vs cpu "
+              f"(plain): admitted {got.batches}; largest logit gap "
+              f"{worst:.3e} of max|logit| (limit 1e-4) over the prefill and "
+              f"{gen} decode steps of each round; greedy tokens equal"
+              + (f" (a tie cut {ties} round short)" if ties else ""),
+              flush=True)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -884,13 +1310,17 @@ def main():
     card = Card(sms, clock_mhz)
     phase_build()
     records = [phase_kernels(card), phase_ens_kernel(card),
-               phase_joint_kernel(card)]
+               phase_joint_kernel(card), phase_flash_kernel(card),
+               phase_gla_kernel(card)]
     records[0]["launches"] = phase_main_path()
     counts, _ = phase_slice_path()
-    # kernel #1 counts on the main path; #2 and #3 on the slice path
+    # kernel #1 counts on the main path; #2 and #3 on the slice path;
+    # #4 and #5 on the serving path
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
+    records[3]["launches"], records[4]["launches"] = phase_serve()
     phase_cross_device()
     phase_cross_device(slice_path=True)
+    phase_serve_golden()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi("name,power.limit"))

@@ -10,6 +10,10 @@ fields as a dict), become the port's tuples on ``device``:
 The parity tests use these to feed both sides identical inputs stage by
 stage. Fields of later slices (the intraday channels, the streaming carry)
 must be absent or None.
+
+``model_params_from_numpy`` carries a JAX model's parameter pytree (as
+numpy, layers stacked on leading axes for ``lax.scan``) into the port's
+module state, so both packages compute with the same weights.
 """
 from __future__ import annotations
 
@@ -81,3 +85,46 @@ def problem_from_numpy(tree, device=None) -> vcc.VCCProblem:
 
 
 ENSEMBLE = ("eta_ens", "pow_nom_ens", "risk_beta")
+
+
+# pytree keys whose leaves stack layers on leading axes, and how many
+STACKED = {"stack": 1, "groups": 2, "trail": 1}
+
+
+def _torch_dtype(a):
+    name = np.asarray(a).dtype.name
+    return {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+        name, torch.float32)
+
+
+def model_params_from_numpy(cfg, tree, device=None) -> dict:
+    """The JAX model's parameters (a nested dict of numpy arrays; bfloat16
+    leaves as ``ml_dtypes`` arrays) -> the port's ``state_dict`` for
+    ``build_model(cfg)``: layer ``i`` of a stacked subtree (``stack``,
+    ``trail``; ``groups`` with two axes, group and layer) becomes module
+    ``<key>.i`` (``groups.g.i``), and each leaf keeps its type. Raises if
+    a stacked subtree does not hold ``cfg``'s layers."""
+    m = cfg.attn_every or 1
+    layers = {"stack": (cfg.num_layers,),
+              "groups": (cfg.num_layers // m, m),
+              "trail": (cfg.num_layers % m,)}
+    state = {}
+
+    def leaves(x, path):
+        if isinstance(x, Mapping):
+            for k, v in x.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, x
+
+    for path, x in leaves(tree, ()):
+        dt = _torch_dtype(x)
+        a = np.asarray(x).astype(np.float32)
+        n_axes = STACKED.get(path[0], 0)
+        if n_axes and a.shape[:n_axes] != layers[path[0]]:
+            raise ValueError(f"{'.'.join(path)}: layers {a.shape[:n_axes]}, "
+                             f"{cfg.name} has {layers[path[0]]}")
+        for idx in np.ndindex(*a.shape[:n_axes]):
+            name = ".".join((path[0],) + tuple(map(str, idx)) + path[1:])
+            state[name] = torch.tensor(a[idx], device=device).to(dt)
+    return state

@@ -1,0 +1,149 @@
+"""Kernel #5, the chunked GLA scan, on Hopper: build, bind, launch.
+
+``csrc/gla_scan.cu`` replaces ``src/repro/kernels/linear_scan/kernel.py:71``
+(``gla_pallas``, body ``_gla_kernel``). It computes ``ref.gla_chunked``:
+the output and the final state, from an optional initial state (the TPU
+kernel returns no final state and takes no initial one). Built and loaded
+through ``kernels/nvcc.py`` at first use; nothing is compiled when this
+module is imported.
+
+``gla_cuda`` launches on ``torch.cuda.current_stream()`` and adds one to its
+``launches`` attribute per launch. ``gla_flops`` and ``gla_bytes`` count the
+work (the bound in ``chip_smoke.py`` and PERF.md comes from them).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import nvcc
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "gla_scan.cu"
+MAX_DIM = 64          # largest K and V the kernel's shared memory holds
+MAX_TILE = 64         # rows of a tile; longer chunks are taken in tiles
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY = ("gla_scan_fwd", nvcc.P * 8 + nvcc.I * 6 + nvcc.I * 12
+          + nvcc.I * 3)
+_lib = {}
+
+
+def build(verbose: bool = False):
+    """Compile ``csrc/gla_scan.cu`` (``nvcc.build``); returns (library
+    path, seconds, nvcc output)."""
+    return nvcc.build(SOURCE, (), nvcc.FLAGS, verbose=verbose)
+
+
+def _load():
+    if "fn" not in _lib:
+        _lib["fn"] = nvcc.load(build()[0], *_ENTRY)
+    return _lib["fn"]
+
+
+def tile_rows(chunk: int) -> int:
+    """Rows of the kernel's tile for a reference chunk size."""
+    return max(1, min(int(chunk), MAX_TILE))
+
+
+def gla_cuda(q, k, v, log_decay, *, bonus=None, strict: bool = False,
+             chunk: int = 64, initial_state=None):
+    """Launch the scan. q, k: (B, S, H, K); v: (B, S, H, V), all float32 or
+    all bfloat16, read through their strides (unit stride over the last
+    dim; q and k may be broadcast over H with stride 0); log_decay float32
+    (B, S, H) or (B, S, H, K); bonus (H, K) and initial_state (B, H, K, V)
+    float32 or None; K, V <= 64. Returns (o (B, S, H, V) in q's type,
+    final_state (B, H, K, V) float32)."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor) or not x.is_cuda:
+            raise ValueError(f"{name}: the kernel takes CUDA tensors")
+        if x.dtype != q.dtype or x.dtype not in _DTYPES:
+            raise ValueError(f"{name}: float32 or bfloat16 like q expected, "
+                             f"got {x.dtype}")
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    vec = log_decay.dim() == 4
+    if tuple(k.shape) != (B, S, H, K) or tuple(v.shape[:3]) != (B, S, H):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if tuple(log_decay.shape) != ((B, S, H, K) if vec else (B, S, H)):
+        raise ValueError(f"log_decay: (B, S, H[, K]) expected, got "
+                         f"{tuple(log_decay.shape)}")
+    if not (1 <= K <= MAX_DIM and 1 <= V <= MAX_DIM):
+        raise ValueError(f"the kernel takes K, V <= {MAX_DIM} (K={K}, V={V})")
+    extra = [("log_decay", log_decay)]
+    if bonus is not None:
+        if tuple(bonus.shape) != (H, K):
+            raise ValueError(f"bonus: ({H}, {K}) expected")
+        extra.append(("bonus", bonus))
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (B, H, K, V):
+            raise ValueError(f"initial_state: ({B}, {H}, {K}, {V}) expected")
+        extra.append(("initial_state", initial_state))
+    for name, x in extra:
+        if not x.is_cuda or x.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 CUDA tensor expected")
+        if x.device != q.device:
+            raise ValueError("all operands must be on one CUDA device")
+    if any(x.device != q.device for x in (k, v)):
+        raise ValueError("all operands must be on one CUDA device")
+    if (bonus is not None and not bonus.is_contiguous()) or (
+            initial_state is not None and not initial_state.is_contiguous()):
+        raise ValueError("bonus and initial_state must be contiguous")
+    sq, sk = nvcc.lead_strides("q", q, 4), nvcc.lead_strides("k", k, 4)
+    sv = nvcc.lead_strides("v", v, 4)
+    sl = nvcc.lead_strides("log_decay", log_decay, 4 if vec else 3)
+    o = torch.empty((B, S, H, V), dtype=q.dtype, device=q.device)
+    hT = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
+    if B * H == 0:
+        return o, hT
+    nvcc.launch(_load(), q.device, (
+        q, k, v, log_decay, bonus, initial_state, o, hT, _DTYPES[q.dtype],
+        B, S, H, K, V, *sq, *sk, *sv, *sl, int(vec), int(bool(strict)),
+        tile_rows(chunk)), "gla_scan")
+    gla_cuda.launches += 1
+    return o, hT
+
+
+gla_cuda.launches = 0
+
+
+def gla_flops(B, S, H, K, V, *, vec=False, bonus=False, strict=False,
+              chunk=64) -> int:
+    """Multiply-add operations of the scan as ``csrc/gla_scan.cu`` does
+    them, two each (the pairs of a tile counted over its valid rows, the
+    state update over the whole tile): per row the inter-tile term 2 K V
+    and the bonus 2 K + 2 V; per attended (t, s) pair the score 2 K (3 K
+    with per-channel decay) and the intra-tile term 2 V; per tile the
+    state update 2 T K V. Exponentials are not counted."""
+    T = tile_rows(chunk)
+    full, rest = divmod(S, T)
+
+    def pairs(n):
+        return n * (n - 1) // 2 if strict else n * (n + 1) // 2
+
+    n_pairs = full * pairs(T) + pairs(rest)
+    tiles = full + (rest > 0)
+    per_row = 2 * K * V + ((2 * K + 2 * V) if bonus else 0)
+    per_pair = (3 if vec else 2) * K + 2 * V
+    return B * H * (S * per_row + n_pairs * per_pair + tiles * 2 * T * K * V)
+
+
+def _stored_bytes(x) -> int:
+    """Bytes of a tensor's distinct elements (dims of stride 0, a broadcast,
+    count once)."""
+    n = 1
+    for size, st in zip(x.shape, x.stride()):
+        if st != 0:
+            n *= size
+    return n * x.element_size()
+
+
+def gla_bytes(q, k, v, log_decay, *, bonus=None, initial_state=None) -> int:
+    """Bytes the scan must move: each input read once (a broadcast operand
+    as stored), o and the float32 final state written once."""
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    ins = sum(_stored_bytes(x) for x in (q, k, v, log_decay, bonus,
+                                          initial_state) if x is not None)
+    return ins + B * S * H * V * v.element_size() + 4 * B * H * K * V

@@ -10,11 +10,11 @@ their reductions, softmax and projection through ``csrc/pgd_common.cuh``:
 * ``joint_step.cu`` replaces ``kernel.py:207`` (``joint_step_pallas``): one
   joint spatio-temporal step.
 
-At first use in a process, ``nvcc`` compiles a source alone into a shared
-library under ``build/`` at the repository root (named by a hash of the
-source, the shared header and ``NVCC_FLAGS``, so an edited source or flag is
-always rebuilt) and ``ctypes`` loads its plain C entry point. Nothing is compiled or loaded when
-this module is imported, so the CPU tests import it without ``nvcc``.
+They are built, loaded and launched through ``kernels/nvcc.py`` (at first
+use in a process, one library per source under ``build/``, keyed by a hash
+of the source, the shared header and ``NVCC_FLAGS``). Nothing is compiled
+or loaded when this module is imported, so the CPU tests import it without
+``nvcc``.
 
 Each ``*_cuda`` wrapper launches on ``torch.cuda.current_stream()`` and adds
 one to its ``launches`` attribute per launch. Beside each wrapper,
@@ -23,89 +23,44 @@ does it (the bound in ``chip_smoke.py`` and PERF.md comes from them).
 """
 from __future__ import annotations
 
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"pgd_epoch": CSRC / "pgd_epoch.cu",
            "pgd_epoch_ens": CSRC / "pgd_epoch_ens.cu",
            "joint_step": CSRC / "joint_step.cu"}
 HEADERS = (CSRC / "pgd_common.cuh",)
-REPO_ROOT = Path(__file__).resolve().parents[4]
-BUILD_DIR = REPO_ROOT / "build"
 # nvcc's default FMA contraction stays on (-fmad=false costs kernel #1 4%
 # on the H100, PERF.md); the expressions kernels #1 and #2 share are spelled
 # with explicit FMAs in csrc/pgd_common.cuh instead
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = nvcc.FLAGS
 MAX_H = 32
 MAX_MEMBERS = 32
 
-_P, _I, _F = "p", "i", "f"
-# C entry point and argument kinds (pointer, int, float) of each library
-_ENTRY = {"pgd_epoch": ("pgd_epoch_f32", _P * 12 + _I * 4 + _P),
-          "pgd_epoch_ens": ("pgd_epoch_ens_f32", _P * 13 + _I * 6 + _P),
-          "joint_step": ("joint_step_f32", _P * 17 + _I * 2 + _F * 2 + _I
-                         + _P)}
+_P, _I, _F = nvcc.P, nvcc.I, nvcc.F
+# C entry point and argument kinds (pointer, int, float) of each library,
+# the stream after them
+_ENTRY = {"pgd_epoch": ("pgd_epoch_f32", _P * 12 + _I * 4),
+          "pgd_epoch_ens": ("pgd_epoch_ens_f32", _P * 13 + _I * 6),
+          "joint_step": ("joint_step_f32", _P * 17 + _I * 2 + _F * 2 + _I)}
 _libs = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if (home / "bin" / "nvcc").exists():
-        return str(home / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the kernels in csrc/")
-
-
 def build(name: str = "pgd_epoch", verbose: bool = False):
-    """Compile ``SOURCES[name]`` with ``NVCC_FLAGS`` into ``build/``
-    unless that exact source, header and flags are already built;
-    ``verbose=True`` always compiles, with ``-Xptxas -v``, to report
-    registers and spills. Returns (library
-    path, seconds, nvcc output); raises on a failed build."""
-    source = SOURCES[name]
-    digest = hashlib.sha1(b"".join(
-        p.read_bytes() for p in (source, *HEADERS))
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
-    if lib.exists() and not verbose:
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
-                           f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, secs, proc.stdout + proc.stderr
+    """Compile ``SOURCES[name]`` with ``NVCC_FLAGS`` (``nvcc.build``);
+    returns (library path, seconds, nvcc output)."""
+    return nvcc.build(SOURCES[name], HEADERS, NVCC_FLAGS, verbose=verbose)
 
 
 def _load(name: str):
     """The C entry point of kernel ``name``, built and loaded at first use."""
     if name not in _libs:
-        import ctypes
-        kinds = {_P: ctypes.c_void_p, _I: ctypes.c_int, _F: ctypes.c_float}
-        path, _, _ = build(name)
-        entry, sig = _ENTRY[name]
-        fn = getattr(ctypes.CDLL(str(path)), entry)
-        fn.argtypes = [kinds[k] for k in sig]
-        fn.restype = ctypes.c_int
-        _libs[name] = fn
+        _libs[name] = nvcc.load(build(name)[0], *_ENTRY[name])
     return _libs[name]
 
 
@@ -143,14 +98,8 @@ def _check_all(wide, slim, rows, H, extra=()):
 
 def _launch(name, delta, *args):
     """Call kernel ``name``'s entry point on the current stream of
-    ``delta``'s device; tensors pass as device pointers."""
-    fn = _load(name)
-    with torch.cuda.device(delta.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    ``delta``'s device."""
+    nvcc.launch(_load(name), delta.device, args, name)
 
 
 # ------------------------------------------------------------- kernel #1

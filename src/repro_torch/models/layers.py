@@ -1,0 +1,121 @@
+"""Shared model building blocks: initialisers, norms, RoPE, soft-capping,
+MLPs. The counterpart of ``repro.models.layers`` (the norms and MLPs of the
+serving path; ``layer_norm``, ``group_norm_heads``, ``sinusoidal_positions``
+and ``chunked_xent`` wait for the models that use them).
+
+Initialisers draw from an explicit ``torch.Generator`` on the device the
+weights live on. They follow the reference's distributions (truncated
+normal over fan-in, normal embeddings), not its random stream: the parity
+tests carry the reference's weights across (``convert.py``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+f32 = torch.float32
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's ``dtype`` string as a torch dtype."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------- init utils
+
+def dense_init(shape, in_axes=(0,), dtype=torch.bfloat16, scale=1.0, *,
+               generator, device):
+    """Truncated normal (at +-2) with stddev scale / sqrt(fan_in)."""
+    fan_in = math.prod(shape[a] for a in in_axes)
+    w = torch.empty(shape, dtype=f32, device=device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * (scale * fan_in ** -0.5)).to(dtype)
+
+
+def embed_init(vocab, d, dtype=torch.bfloat16, *, generator, device):
+    w = torch.randn((vocab, d), dtype=f32, device=device,
+                    generator=generator)
+    return (w * d ** -0.5).to(dtype)
+
+
+def init_rms(d, *, device):
+    return torch.zeros((d,), dtype=f32, device=device)  # (1 + scale)
+
+
+def param(x) -> nn.Parameter:
+    return nn.Parameter(x, requires_grad=False)
+
+
+# --------------------------------------------------------------------- norms
+
+def rms_norm(x, scale, eps=1e-6):
+    xf = x.to(f32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(f32))
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- rope
+
+def rope(x, positions, theta: float):
+    """Rotary embedding, llama rotate-half convention. x: (B, S, N, H);
+    positions: (S,) or (B, S)."""
+    if theta == 0.0:
+        return x
+    H = x.shape[-1]
+    half = H // 2
+    freqs = torch.pow(float(theta), -torch.arange(
+        0, half, dtype=f32, device=x.device) / half)
+    pos = positions.to(f32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    ang = pos[:, :, None] * freqs[None, None, :]        # (B|1, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf = x.to(f32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ----------------------------------------------------------------------- mlp
+
+class MLP(nn.Module):
+    """``init_mlp`` / ``apply_mlp``: swiglu, geglu (tanh GELU, as
+    ``jax.nn.gelu``), gelu and relu2."""
+
+    def __init__(self, d_model, d_ff, act: str, dtype, *, generator,
+                 device):
+        super().__init__()
+        gated = act in ("swiglu", "geglu")
+        if act not in ("swiglu", "geglu", "gelu", "relu2"):
+            raise ValueError(act)
+        self.act = act
+        self.wi = param(dense_init((d_model, (2 if gated else 1) * d_ff),
+                                   (0,), dtype, generator=generator,
+                                   device=device))
+        self.wo = param(dense_init((d_ff, d_model), (0,), dtype,
+                                   generator=generator, device=device))
+
+    def forward(self, x):
+        h = x @ self.wi
+        if self.act in ("swiglu", "geglu"):
+            g, u = h.chunk(2, dim=-1)
+            g = F.silu(g) if self.act == "swiglu" else \
+                F.gelu(g, approximate="tanh")
+            h = g * u
+        elif self.act == "gelu":
+            h = F.gelu(h, approximate="tanh")
+        else:
+            h = torch.square(F.relu(h))
+        return h @ self.wo

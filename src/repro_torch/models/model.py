@@ -1,0 +1,34 @@
+"""``build_model``: the counterpart of ``repro.models.model.build_model``
+for the families this slice ports (dense and hybrid). The reference's
+``param_specs``, ``cache_specs``, ``batch_specs`` and ``input_specs`` are
+``jax.eval_shape`` dry-run helpers and have no counterpart (ROADMAP.md:
+out of scope on one card)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.models.transformer import DecoderLM, ZambaLM
+
+_LATER = ("ROADMAP.md queue 1, item 9: the MoE, MLA, VLM, RWKV6 and "
+          "encoder-decoder models come after the serving slice")
+
+
+def build_model(cfg, device=None, *, seed: int = 0, generator=None):
+    """The model of ``cfg`` on ``device`` (default ``cuda``; raises without
+    a card unless ``"cpu"`` is asked for), its weights drawn from
+    ``generator`` or a generator on that device seeded with ``seed``.
+    Raises ``NotImplementedError`` for a family or option not ported."""
+    dev = device_mod.resolve(device)
+    if cfg.family not in ("dense", "hybrid") or cfg.mla is not None \
+            or cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
+                                  f"ported yet ({_LATER})")
+    if cfg.flash_decode:
+        raise NotImplementedError(f"{cfg.name}: flash_decode shards the "
+                                  "cache over a mesh; out of scope on one "
+                                  "card (ROADMAP.md queue 1, item 9)")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    cls = DecoderLM if cfg.family == "dense" else ZambaLM
+    return cls(cfg, generator=generator, device=dev)

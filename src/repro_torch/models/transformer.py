@@ -1,0 +1,304 @@
+"""Decoder LMs of the serving slice: the dense ``DecoderLM`` and the hybrid
+``ZambaLM`` (Mamba2 backbone plus one weight-shared attention block). The
+counterpart of ``repro.models.transformer``'s blocks and those two models,
+without their MLA and MoE branches (ROADMAP.md queue 1, item 9).
+
+The reference stacks per-layer parameters for ``lax.scan``; here each
+layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
+``attn_every`` Mamba2 layers and the ``trail`` after them), named as the
+reference names its parameters, so ``convert.model_params_from_numpy``
+carries a reference model across. Every model exposes
+
+    init_cache(batch, max_seq) -> decode cache
+    prefill(batch, max_seq) -> (last-token logits, cache)
+    decode_step(cache, token, pos) -> (logits, cache)
+
+with ``batch = {"tokens": (B, S) int64}``, ``token`` (B,) and ``pos`` a
+Python int (the cache fill position). Caches keep the reference's stacked
+layout and are written in place by ``decode_step``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+f32 = torch.float32
+
+
+class Block(nn.Module):
+    """``init_block`` / ``apply_block`` / ``apply_block_decode`` with the
+    GQA mixer and the MLP."""
+
+    def __init__(self, cfg, dtype, *, generator, device):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device)
+        self.ln1 = L.param(L.init_rms(cfg.d_model, device=device))
+        self.ln2 = L.param(L.init_rms(cfg.d_model, device=device))
+        if cfg.post_norm:
+            self.ln1_post = L.param(L.init_rms(cfg.d_model, device=device))
+            self.ln2_post = L.param(L.init_rms(cfg.d_model, device=device))
+        self.mixer = A.GQA(cfg, dtype, **kw)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw)
+
+    def _ffn(self, x, out):
+        cfg = self.cfg
+        if cfg.post_norm:
+            out = L.rms_norm(out, self.ln1_post, cfg.norm_eps)
+        x = x + out
+        out = self.ffn(L.rms_norm(x, self.ln2, cfg.norm_eps))
+        if cfg.post_norm:
+            out = L.rms_norm(out, self.ln2_post, cfg.norm_eps)
+        return x + out
+
+    def forward(self, x, positions, *, window: Optional[int] = None,
+                return_kv: bool = False):
+        """Returns (x, (k, v) or None)."""
+        h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
+        out = self.mixer(h, positions, window=window, return_kv=return_kv)
+        kv = None
+        if return_kv:
+            out, kv = out
+        return self._ffn(x, out), kv
+
+    def decode(self, x, cache, pos: int, *, window: Optional[int] = None):
+        """cache: {"k", "v"} (B, Smax, K, H), written in place."""
+        h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
+        out, kc, vc = self.mixer.decode(h, cache["k"], cache["v"], pos,
+                                        window=window)
+        return self._ffn(x, out), {"k": kc, "v": vc}
+
+
+def attn_cache_shapes(cfg, batch: int, max_seq: int):
+    """``_attn_cache_shapes``: one layer's KV cache shapes and dtypes."""
+    a = cfg.attn
+    dt = L.torch_dtype(cfg.dtype)
+    shape = (batch, max_seq, a.num_kv_heads, a.head_dim)
+    return {"k": (shape, dt), "v": (shape, dt)}
+
+
+def pad_kv_to(x, max_seq: int, axis: int = 1):
+    """``_pad_kv_to``: zero-pad the sequence axis to ``max_seq``."""
+    pad = [0, 0] * (x.dim() - axis - 1) + [0, max_seq - x.shape[axis]]
+    return F.pad(x, pad)
+
+
+def _stack_kv(kvs, max_seq):
+    """Per-layer (k, v) of (B, S, K, H) -> {"k", "v"} (L, B, max_seq, K, H)."""
+    return {name: pad_kv_to(torch.stack([kv[i] for kv in kvs]), max_seq,
+                            axis=2) for i, name in enumerate(("k", "v"))}
+
+
+class _LM(nn.Module):
+    """Embedding, final norm and head shared by the two models."""
+
+    def __init__(self, cfg, *, generator, device, tied: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = L.torch_dtype(cfg.dtype)
+        kw = dict(generator=generator, device=device)
+        self.embed = L.param(L.embed_init(cfg.vocab_size, cfg.d_model,
+                                          self.dtype, **kw))
+        self.final_norm = L.param(L.init_rms(cfg.d_model, device=device))
+        if not tied:
+            self.lm_head = L.param(L.embed_init(cfg.vocab_size, cfg.d_model,
+                                                self.dtype, **kw))
+
+    def _logits(self, x_last, head, cap=None):
+        """(B, D) -> float32 (B, vocab), as the reference's f32 einsum."""
+        return L.softcap(x_last.to(f32) @ head.to(f32).T, cap)
+
+
+class DecoderLM(_LM):
+    """Dense decoder (``family == "dense"``): windows, post-norms, embedding
+    scale, logit softcap and tied embeddings as the config says."""
+
+    def __init__(self, cfg, *, generator, device):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"DecoderLM here takes the dense family, not {cfg.family!r}"
+                " (MoE, MLA and VLM: ROADMAP.md queue 1, item 9)")
+        super().__init__(cfg, generator=generator, device=device,
+                         tied=cfg.tie_embeddings)
+        dt = self.dtype
+        self.stack = nn.ModuleList(
+            Block(cfg, dt, generator=generator, device=device)
+            for _ in range(cfg.num_layers))
+
+    def _head(self):
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
+    def windows(self):
+        """Per-layer windows (gemma2's local/global alternation) or None."""
+        cfg = self.cfg
+        if cfg.attn is None or cfg.attn.pattern != "local_global":
+            return [None] * cfg.num_layers
+        return [cfg.attn.window if i % 2 == 0 else A.GLOBAL_WINDOW
+                for i in range(cfg.num_layers)]
+
+    def _embed(self, tokens):
+        x = F.embedding(tokens, self.embed)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def forward(self, tokens, *, collect_kv: bool = False):
+        """Final hidden states (and each layer's (k, v) if asked)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        kvs = []
+        for blk, w in zip(self.stack, self.windows()):
+            x, kv = blk(x, positions, window=w, return_kv=collect_kv)
+            kvs.append(kv)
+        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+        return (x, kvs) if collect_kv else x
+
+    def init_cache(self, batch: int, max_seq: int):
+        shapes = attn_cache_shapes(self.cfg, batch, max_seq)
+        dev = self.embed.device
+        return {"stack": {k: torch.zeros((self.cfg.num_layers,) + sh,
+                                         dtype=dt, device=dev)
+                          for k, (sh, dt) in shapes.items()}}
+
+    def prefill(self, batch, max_seq: int):
+        x, kvs = self.forward(batch["tokens"], collect_kv=True)
+        cache = {"stack": _stack_kv(kvs, max_seq)}
+        return self._logits(x[:, -1], self._head(),
+                            self.cfg.logit_softcap), cache
+
+    def decode_step(self, cache, token, pos: int):
+        """token: (B,); pos: the cache fill position."""
+        cfg = self.cfg
+        x = self._embed(token[:, None])
+        st = cache["stack"]
+        for i, (blk, w) in enumerate(zip(self.stack, self.windows())):
+            x, _ = blk.decode(x, {"k": st["k"][i], "v": st["v"][i]}, pos,
+                              window=w)
+        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._logits(x[:, 0], self._head(), cfg.logit_softcap), cache
+
+
+class MambaLayer(nn.Module):
+    """A Zamba2 backbone layer: pre-norm and a Mamba2 mixer."""
+
+    def __init__(self, cfg, dtype, *, generator, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = L.param(L.init_rms(cfg.d_model, device=device))
+        self.mamba = S.Mamba2(cfg, dtype, generator=generator, device=device)
+
+    def forward(self, x, *, want_state: bool = False):
+        h = L.rms_norm(x, self.ln, self.cfg.norm_eps)
+        if want_state:
+            y, st = self.mamba(h, return_state=True)
+            return x + y, st
+        return x + self.mamba(h), None
+
+    def decode(self, x, conv_state, ssm_state):
+        h = L.rms_norm(x, self.ln, self.cfg.norm_eps)
+        y, conv_state, ssm_state = self.mamba.decode(h, conv_state, ssm_state)
+        return x + y, conv_state, ssm_state
+
+
+class ZambaLM(_LM):
+    """``num_layers`` Mamba2 layers; one weight-shared transformer block
+    after every ``attn_every`` of them (``groups``), the rest after
+    (``trail``)."""
+
+    def __init__(self, cfg, *, generator, device):
+        if cfg.family != "hybrid":
+            raise NotImplementedError(f"ZambaLM takes the hybrid family, not "
+                                      f"{cfg.family!r}")
+        super().__init__(cfg, generator=generator, device=device,
+                         tied=False)
+        self.m = cfg.attn_every
+        self.n_groups = cfg.num_layers // self.m
+        self.n_trail = cfg.num_layers - self.n_groups * self.m
+        kw = dict(generator=generator, device=device)
+        dt = self.dtype
+        self.groups = nn.ModuleList(
+            nn.ModuleList(MambaLayer(cfg, dt, **kw) for _ in range(self.m))
+            for _ in range(self.n_groups))
+        self.shared = Block(cfg, dt, **kw)
+        self.trail = nn.ModuleList(MambaLayer(cfg, dt, **kw)
+                                   for _ in range(self.n_trail))
+
+    def forward(self, tokens, *, collect: bool = False):
+        """Final hidden states; with ``collect``, also the groups' and the
+        trail's (conv, ssm) states and the shared block's (k, v) each
+        application."""
+        x = F.embedding(tokens, self.embed)
+        positions = torch.arange(x.shape[1], device=x.device)
+        g_states, g_kv, t_states = [], [], []
+        for group in self.groups:
+            states = []
+            for layer in group:
+                x, st = layer(x, want_state=collect)
+                states.append(st)
+            x, kv = self.shared(x, positions, return_kv=collect)
+            g_states.append(states)
+            g_kv.append(kv)
+        for layer in self.trail:
+            x, st = layer(x, want_state=collect)
+            t_states.append(st)
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return (x, (g_states, g_kv, t_states)) if collect else x
+
+    def init_cache(self, batch: int, max_seq: int):
+        cs, ss = S.mamba_state_shapes(self.cfg, batch)
+        dev, dt = self.embed.device, self.dtype
+        ash = attn_cache_shapes(self.cfg, batch, max_seq)
+        G, m, T = self.n_groups, self.m, self.n_trail
+        return {
+            "g_conv": torch.zeros((G, m) + cs, dtype=dt, device=dev),
+            "g_ssm": torch.zeros((G, m) + ss, dtype=f32, device=dev),
+            "t_conv": torch.zeros((T,) + cs, dtype=dt, device=dev),
+            "t_ssm": torch.zeros((T,) + ss, dtype=f32, device=dev),
+            "attn": {k: torch.zeros((G,) + sh, dtype=d, device=dev)
+                     for k, (sh, d) in ash.items()},
+        }
+
+    def prefill(self, batch, max_seq: int):
+        x, (g_states, g_kv, t_states) = self.forward(batch["tokens"],
+                                                     collect=True)
+
+        def stack(states, i):
+            return torch.stack([st[i] for st in states])
+
+        dev = x.device
+        cache = {
+            "g_conv": torch.stack([stack(g, 0) for g in g_states]),
+            "g_ssm": torch.stack([stack(g, 1) for g in g_states]),
+            "t_conv": (stack(t_states, 0) if self.n_trail else
+                       torch.zeros((0,), dtype=self.dtype, device=dev)),
+            "t_ssm": (stack(t_states, 1) if self.n_trail else
+                      torch.zeros((0,), dtype=f32, device=dev)),
+            "attn": _stack_kv(g_kv, max_seq),
+        }
+        return self._logits(x[:, -1], self.lm_head), cache
+
+    def decode_step(self, cache, token, pos: int):
+        x = F.embedding(token[:, None], self.embed)
+        ak, av = cache["attn"]["k"], cache["attn"]["v"]
+        for g, group in enumerate(self.groups):
+            for i, layer in enumerate(group):
+                x, cst, sst = layer.decode(x, cache["g_conv"][g, i],
+                                           cache["g_ssm"][g, i])
+                cache["g_conv"][g, i] = cst
+                cache["g_ssm"][g, i] = sst
+            x, _ = self.shared.decode(x, {"k": ak[g], "v": av[g]}, pos)
+        for i, layer in enumerate(self.trail):
+            x, cst, sst = layer.decode(x, cache["t_conv"][i],
+                                       cache["t_ssm"][i])
+            cache["t_conv"][i] = cst
+            cache["t_ssm"][i] = sst
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x[:, 0], self.lm_head), cache

@@ -1,0 +1,167 @@
+"""The GLA scan (kernel #5's plain version and dispatcher) against the JAX
+package: ``gla_chunked``, ``gla_naive`` and ``gla_step``, and its Pallas
+kernel in interpret mode, over the cases of ``tests/test_kernels_gla.py``
+(scalar, per-channel and RWKV6 bonus + strict decay, a ragged length,
+several chunk sizes), output and final state, plus an initial state. The
+CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``.
+
+Tolerance: 1e-5 of the largest value (output, or state), in float32:
+both sides run the same float32 arithmetic, summed in another order.
+Inputs come from numpy with a seed.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.linear_scan import kernel as jkernel
+from repro.kernels.linear_scan import ref as jref
+from repro_torch.kernels.linear_scan import kernel, ops, ref
+
+RTOL = 1e-5
+CASES = [
+    # B, S, H, K, V, mode, chunk
+    (2, 64, 2, 16, 8, "scalar", 16),
+    (1, 96, 3, 8, 16, "vector", 32),
+    (2, 64, 2, 8, 8, "rwkv", 16),
+    (1, 37, 1, 4, 4, "rwkv", 8),        # ragged length
+    (2, 128, 2, 32, 16, "scalar", 64),
+]
+
+
+def _inputs(case, seed, initial=False):
+    """(jax arrays, torch tensors, strict) of a case:
+    q, k, v, log_decay, bonus, initial state."""
+    B, S, H, K, V, mode, _ = case
+    rng = np.random.default_rng(seed)
+
+    def n(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q, k, v = n(B, S, H, K), n(B, S, H, K), n(B, S, H, V)
+    if mode == "scalar":
+        ld, u = -np.abs(n(B, S, H)) * 0.7, None
+    else:
+        ld = -np.abs(n(B, S, H, K)) * 3.0
+        u = n(H, K) if mode == "rwkv" else None
+    h0 = n(B, H, K, V) if initial else None
+    arrs = (q, k, v, ld, u, h0)
+    return ([None if a is None else jnp.asarray(a) for a in arrs],
+            [None if a is None else torch.tensor(a) for a in arrs],
+            mode == "rwkv")
+
+
+def _close(j, t, what):
+    j = np.asarray(j)
+    gap = np.abs(j - t.numpy()).max()
+    assert gap <= RTOL * np.abs(j).max(), (what, gap, np.abs(j).max())
+
+
+@pytest.mark.parametrize("initial", (False, True))
+@pytest.mark.parametrize("case", CASES)
+def test_chunked_matches_reference(case, initial):
+    (jq, jk, jv, jld, ju, jh), (q, k, v, ld, u, h0), strict = _inputs(
+        case, 0, initial)
+    kw = dict(strict=strict, chunk=case[-1])
+    o, hT = ref.gla_chunked(q, k, v, ld, bonus=u, initial_state=h0, **kw)
+    jo, jhT = jref.gla_chunked(jq, jk, jv, jld, bonus=ju, initial_state=jh,
+                               **kw)
+    _close(jo, o, "o")
+    _close(jhT, hT, "state")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_naive_matches_reference_and_interpret_kernel(case):
+    """The sequential oracle, and the chunked version against the Pallas
+    kernel (interpret mode, which takes no initial state)."""
+    (jq, jk, jv, jld, ju, _), (q, k, v, ld, u, _), strict = _inputs(case, 1)
+    o, hT = ref.gla_naive(q, k, v, ld, bonus=u, strict=strict)
+    jo, jhT = jref.gla_naive(jq, jk, jv, jld, bonus=ju, strict=strict)
+    _close(jo, o, "naive o")
+    _close(jhT, hT, "naive state")
+    po, phT = jkernel.gla_pallas(jq, jk, jv, jld, bonus=ju, strict=strict,
+                                 chunk=case[-1], interpret=True)
+    co, chT = ref.gla_chunked(q, k, v, ld, bonus=u, strict=strict,
+                              chunk=case[-1])
+    _close(po, co, "pallas o")
+    _close(phT, chT, "pallas state")
+
+
+@pytest.mark.parametrize("mode", ("scalar", "rwkv"))
+def test_initial_state_carries_a_split_sequence(mode):
+    """Scanning the second half from the first half's final state is the
+    scan of the whole: what prefill followed by a later prefill needs."""
+    case = (2, 80, 2, 8, 8, mode, 16)
+    _, (q, k, v, ld, u, _), strict = _inputs(case, 2)
+    kw = dict(bonus=u, strict=strict, chunk=16)
+    o, hT = ref.gla_chunked(q, k, v, ld, **kw)
+    o1, h1 = ref.gla_chunked(q[:, :30], k[:, :30], v[:, :30], ld[:, :30],
+                             **kw)
+    o2, h2 = ref.gla_chunked(q[:, 30:], k[:, 30:], v[:, 30:], ld[:, 30:],
+                             initial_state=h1, **kw)
+    assert (torch.cat([o1, o2], 1) - o).abs().max() <= RTOL * o.abs().max()
+    assert (h2 - hT).abs().max() <= RTOL * hT.abs().max()
+
+
+def test_chunk_size_invariance():
+    case = (2, 96, 2, 8, 8, "rwkv", 8)
+    _, (q, k, v, ld, u, _), strict = _inputs(case, 3)
+    outs = [ref.gla_chunked(q, k, v, ld, bonus=u, strict=strict, chunk=c)[0]
+            for c in (8, 16, 32, 96)]
+    for o in outs[1:]:
+        assert (o - outs[0]).abs().max() <= 2e-4
+
+
+@pytest.mark.parametrize("mode", ("scalar", "rwkv"))
+def test_step_matches_reference_step_and_sequence(mode):
+    """``gla_step`` over a sequence, from an initial state, against the
+    JAX package's step and the port's own sequential scan."""
+    case = (1, 16, 2, 8, 8, mode, 8)
+    (jq, jk, jv, jld, ju, jh), (q, k, v, ld, u, h), strict = _inputs(
+        case, 4, initial=True)
+    want, _ = ref.gla_naive(q, k, v, ld, bonus=u, strict=strict,
+                            initial_state=h)
+    jst = jh
+    for t in range(q.shape[1]):
+        o, h = ops.gla_step(q[:, t], k[:, t], v[:, t], ld[:, t], h, bonus=u,
+                            strict=strict)
+        jo, jst = jref.gla_step(jq[:, t], jk[:, t], jv[:, t], jld[:, t], jst,
+                                bonus=ju, strict=strict)
+        _close(jo, o, f"step {t}")
+        _close(jst, h, f"state {t}")
+        assert (o - want[:, t]).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_cpu_tensors_take_the_plain_route():
+    """A CPU tensor never reaches the kernel (the launch counter stays
+    where it was, 0 without a card); broadcast q and k (Mamba2's B and C,
+    stride 0 over the heads) go in as they are."""
+    case = (2, 40, 3, 8, 4, "scalar", 16)
+    _, (q, k, v, ld, _, h0), _ = _inputs(case, 5, initial=True)
+    q, k = (x[:, :, :1].expand(2, 40, 3, 8) for x in (q, k))
+    before = kernel.gla_cuda.launches
+    o, hT = ops.gla(q, k, v, ld, chunk=16, initial_state=h0)
+    assert kernel.gla_cuda.launches == before
+    wo, whT = ref.gla_chunked(q.contiguous(), k.contiguous(), v, ld,
+                              chunk=16, initial_state=h0)
+    assert torch.equal(o, wo) and torch.equal(hT, whT)
+    with pytest.raises(ValueError, match="no gla route"):
+        ops.gla(q.to("meta"), k.to("meta"), v.to("meta"), ld.to("meta"))
+
+
+def test_work_counts():
+    """The scan's byte count reads a broadcast operand once; its pair
+    count follows the tiles (strict drops the diagonal)."""
+    case = (2, 100, 4, 16, 8, "scalar", 256)
+    _, (q, k, v, ld, _, _), _ = _inputs(case, 6)
+    qb = q[:, :, :1].expand(2, 100, 4, 16)
+    full = kernel.gla_bytes(q, k, v, ld)
+    bcast = kernel.gla_bytes(qb, qb, v, ld)
+    assert full - bcast == 2 * 4 * (2 * 100 * 4 * 16 - 2 * 100 * 16)
+    assert kernel.tile_rows(256) == 64 and kernel.tile_rows(16) == 16
+    B, S, H, K, V = 2, 100, 4, 16, 8
+    incl = kernel.gla_flops(B, S, H, K, V, chunk=256)
+    strict = kernel.gla_flops(B, S, H, K, V, chunk=256, strict=True)
+    # tiles of 64 and 36 rows: the diagonal is 100 pairs of 2 K + 2 V
+    assert incl - strict == B * H * 100 * (2 * K + 2 * V)

@@ -46,6 +46,41 @@ def test_every_kernel_source_is_in_the_package(name):
     assert all(h.is_file() for h in kernel.HEADERS)
 
 
+def test_serving_slice_modules_are_scanned():
+    """The serving slice's subpackages are among the scanned sources."""
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    assert {"repro_torch/configs/__init__.py",
+            "repro_torch/configs/base.py",
+            "repro_torch/configs/zamba2_7b.py",
+            "repro_torch/models/transformer.py",
+            "repro_torch/models/ssm.py",
+            "repro_torch/models/attention.py",
+            "repro_torch/launch/serve.py",
+            "repro_torch/training.py",
+            "repro_torch/kernels/nvcc.py",
+            "repro_torch/kernels/flash_attention/kernel.py",
+            "repro_torch/kernels/flash_attention/ops.py",
+            "repro_torch/kernels/flash_attention/ref.py",
+            "repro_torch/kernels/linear_scan/kernel.py",
+            "repro_torch/kernels/linear_scan/ops.py",
+            "repro_torch/kernels/linear_scan/ref.py"} <= names
+
+
+@pytest.mark.parametrize("module,source", (
+    ("flash_attention", "flash_attention.cu"),
+    ("linear_scan", "gla_scan.cu")))
+def test_slice_kernel_sources_are_in_the_package(module, source):
+    """Kernels #4 and #5 are built from sources of the package, each with
+    its plain C entry point."""
+    import importlib
+    kernel = importlib.import_module(f"repro_torch.kernels.{module}.kernel")
+    assert kernel.SOURCE.is_file() and kernel.SOURCE.name == source
+    assert kernel.SOURCE.parent == kernel.CSRC
+    assert kernel.CSRC == ROOT / "src" / "repro_torch" / "kernels" / \
+        module / "csrc"
+    assert f'extern "C" int {kernel._ENTRY[0]}(' in kernel.SOURCE.read_text()
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_or_reference_imports(path):

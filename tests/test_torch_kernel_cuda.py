@@ -10,7 +10,12 @@ Tolerances: atol 1e-4 on delta after 80 steps of either epoch (the kernels
 sum the hours, and the CVaR epoch the members, in another order than the
 plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s. The
 CVaR epoch over K identical members is kernel #1 to 1e-6 (they share their
-device code, so bitwise is expected).
+device code, so bitwise is expected). Flash attention (#4): 2e-5 in float32
+and 2e-2 in bf16 against ``ref.attention_reference``, as
+``tests/test_kernels_flash.py`` holds the TPU kernel. The GLA scan (#5):
+1e-4 of max|o| on the output and of max|state| on the final state against
+``ref.gla_chunked`` (the kernel walks a chunk in tiles of up to 64 rows and
+sums in another order).
 """
 import dataclasses
 
@@ -19,6 +24,12 @@ import pytest
 import torch
 
 from repro_torch.core import vcc
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.linear_scan import kernel as gla_kernel
+from repro_torch.kernels.linear_scan import ops as gla_ops
+from repro_torch.kernels.linear_scan import ref as gla_ref
 from repro_torch.kernels.vcc_pgd import kernel, ref
 
 H = 24
@@ -212,3 +223,130 @@ def test_joint_solve_with_members_goes_through_the_kernels(cuda_device):
     assert (s_gpu.cpu() - s_cpu).abs().max().item() <= 1e-3 * \
         p.tau.abs().max().item()
     assert (d_gpu.cpu() - d_cpu).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------------------ kernel #4: attention
+
+FLASH_CASES = [
+    # B, Sq, Sk, N, K, H, causal, window, softcap, q_offset, length, dtype
+    (2, 256, 256, 4, 2, 64, True, None, None, 0, None, torch.float32),
+    (1, 200, 200, 8, 8, 32, True, None, 50.0, 0, None, torch.float32),
+    (2, 128, 128, 4, 1, 64, True, 64, None, 0, None, torch.float32),
+    (1, 256, 256, 2, 2, 128, False, None, None, 0, None, torch.float32),
+    (1, 320, 320, 4, 4, 96, True, 128, 30.0, 0, None, torch.float32),
+    (2, 130, 130, 4, 4, 112, True, None, None, 0, None, torch.bfloat16),
+    (2, 128, 128, 16, 8, 128, True, None, None, 0, None, torch.bfloat16),
+    (1, 70, 70, 4, 2, 256, True, 16, 50.0, 0, None, torch.float32),
+    (2, 1, 80, 4, 2, 32, True, None, None, 45, 46, torch.float32),
+    (3, 1, 90, 4, 4, 112, True, None, None, 60, 61, torch.bfloat16),
+    (2, 1, 50, 16, 8, 128, True, 16, 50.0, 30, 31, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, case):
+    B, Sq, Sk, N, K, Hd, causal, window, softcap, off, length, dt = case
+    g = torch.Generator().manual_seed(Sq + Sk + Hd)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda_device, dt)
+               for shape in ((B, Sq, N, Hd), (B, Sk, K, Hd), (B, Sk, K, Hd)))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off,
+              length=length)
+    before = fa_kernel.flash_attention_cuda.launches
+    got = fa_ops.attention(q, k, v, **kw)
+    assert fa_kernel.flash_attention_cuda.launches == before + 1
+    want = fa_ref.attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    assert got.dtype == dt and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_cache_views(cuda_device):
+    """A layer's view of a stacked (L, B, S, K, H) cache and a q sliced
+    from a wider projection go in without a copy."""
+    g = torch.Generator().manual_seed(5)
+    cache = torch.randn(3, 2, 64, 2, 32, generator=g).to(cuda_device)
+    wide = torch.randn(2, 1, 4, 48, generator=g).to(cuda_device)
+    q, kc, vc = wide[..., :32], cache[1], cache[2]
+    got = fa_kernel.flash_attention_cuda(q, kc, vc, q_offset=20, length=21)
+    want = fa_ref.attention_reference(q, kc, vc, q_offset=20, length=21)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros(1, 4, 2, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="length"):
+        fa_kernel.flash_attention_cuda(q, q, q, length=5)
+    with pytest.raises(ValueError, match="H <= 256"):
+        big = torch.zeros(1, 4, 2, 264, device=cuda_device)
+        fa_kernel.flash_attention_cuda(big, big, big)
+
+
+# ------------------------------------------------------ kernel #5: GLA scan
+
+GLA_CASES = [
+    # B, S, H, K, V, mode, chunk, initial state, dtype
+    (2, 64, 2, 16, 8, "scalar", 16, False, torch.float32),
+    (1, 96, 3, 8, 16, "vector", 32, False, torch.float32),
+    (2, 64, 2, 8, 8, "rwkv", 16, True, torch.float32),
+    (1, 37, 1, 4, 4, "rwkv", 8, False, torch.float32),
+    (2, 300, 4, 64, 64, "scalar", 256, True, torch.float32),
+    (2, 300, 4, 64, 64, "scalar", 256, False, torch.bfloat16),
+    (1, 130, 4, 64, 64, "rwkv", 64, True, torch.float32),
+]
+
+
+def _gla_inputs(case, device):
+    B, S, H, K, V, mode, chunk, init, dt = case
+    g = torch.Generator().manual_seed(S * H + K)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g)
+
+    q, k, v = n(B, S, H, K), n(B, S, H, K), n(B, S, H, V)
+    if mode == "scalar":
+        # Mamba2: q and k shared by the heads (stride 0), scalar decay
+        q, k = (x[:, :, :1].expand(B, S, H, K) for x in (q, k))
+        ld, u = -0.7 * n(B, S, H).abs(), None
+    else:
+        ld = -3.0 * n(B, S, H, K).abs()
+        u = n(H, K) if mode == "rwkv" else None
+    h0 = n(B, H, K, V) if init else None
+    to = dict(device=device)
+    return (q.to(**to, dtype=dt), k.to(**to, dtype=dt), v.to(**to, dtype=dt),
+            ld.to(**to), None if u is None else u.to(**to),
+            None if h0 is None else h0.to(**to), mode == "rwkv", chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLA_CASES)
+def test_gla_kernel_matches_plain_on_card(cuda_device, case):
+    q, k, v, ld, u, h0, strict, chunk = _gla_inputs(case, cuda_device)
+    kw = dict(bonus=u, strict=strict, chunk=chunk, initial_state=h0)
+    before = gla_kernel.gla_cuda.launches
+    o, hT = gla_ops.gla(q, k, v, ld, **kw)
+    assert gla_kernel.gla_cuda.launches == before + 1
+    wo, whT = gla_ref.gla_chunked(q, k, v, ld, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and hT.dtype == torch.float32
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    assert (o.float() - wo.float()).abs().max().item() <= \
+        tol * wo.float().abs().max().item()
+    assert (hT - whT).abs().max().item() <= 1e-4 * whT.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gla_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 2, 72, device=cuda_device)
+    ld = torch.zeros(1, 8, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="K, V <= 64"):
+        gla_kernel.gla_cuda(x, x, x, ld)
+    y = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="log_decay"):
+        gla_kernel.gla_cuda(y, y, y, ld.double())
