@@ -6,9 +6,10 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``nvcc`` compiles the five kernels of the port from their
-   ``csrc/`` into ``build/`` (one compiler process per source, all started
-   together, with ``-Xptxas -v``: registers and spills);
+2. build: ``nvcc`` compiles the seven kernel sources of the port (three
+   of kernel #4: its decode, bf16 prefill and float32 prefill routes) from
+   their ``csrc/`` into ``build/`` (one compiler process per source, all
+   started together, with ``-Xptxas -v``: registers and spills);
 3. kernels against their plain versions on the card, at three row counts
    each (ragged, the path's, fleet scale): the PGD epoch (#1) and the CVaR
    ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3).
@@ -18,7 +19,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    and #2 over identical members against #1. Then flash attention (#4) at
    the serving path's prefill and decode shapes of Zamba2-7B and
    Qwen3-0.6B, a ragged length, and GQA, window and softcap cases, timed
-   beside ``scaled_dot_product_attention``; and the GLA scan (#5) at
+   beside ``scaled_dot_product_attention``, with each call's route (and
+   key splits for decode), TFLOP/s and share of the bound; the decode
+   route's float32 split partials against ``ref.attention_partials``;
+   and the GLA scan (#5) at
    Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
    and in RWKV6-7B's per-channel and bonus + strict modes;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
@@ -147,8 +151,8 @@ def kernel_builds():
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     return [(k, partial(pgd_kernel.build, k)) for k in pgd_kernel.SOURCES] \
-        + [("flash_attention", fa_kernel.build),
-           ("gla_scan", gla_kernel.build)]
+        + [(k, partial(fa_kernel.build, k)) for k in fa_kernel.SOURCES] \
+        + [("gla_scan", gla_kernel.build)]
 
 
 def phase_build():
@@ -204,6 +208,7 @@ class Card:
     SM and clock (the issue floor of the one-warp-per-row designs)."""
 
     def __init__(self, sms, clock_mhz):
+        self.sms = sms
         self.fp32_per_s = sms * 128 * 2 * clock_mhz * 1e6
         self.shfl_per_s = sms * clock_mhz * 1e6
 
@@ -539,9 +544,16 @@ def sdpa_call(q, k, v, mask):
                                                   enable_gqa=gqa)
 
 
+FLASH_SOURCES = [f"src/repro_torch/kernels/flash_attention/csrc/{f}" for f in
+                 ("flash_prefill.cu", "flash_decode.cu", "flash_attention.cu",
+                  "flash_common.cuh")]
+
+
 def phase_flash_kernel(card):
     """Kernel #4 against its plain version (both called directly on CUDA
-    tensors), timed beside SDPA."""
+    tensors), timed beside SDPA, with its route, rate and share of the
+    bound; then the decode route's split partials against
+    ``ref.attention_partials``."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     dev = torch.device("cuda")
@@ -569,13 +581,21 @@ def phase_flash_kernel(card):
         nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H,
                                            q.element_size(), **pairs)
         bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
+        route = fa_kernel.route(Sq, dt)
+        if route == "flash_decode":
+            begin, end = fa_ref.key_span(Sq, Sk, **pairs)
+            splits = fa_kernel.decode_splits(B, K, N // K * Sq, end - begin,
+                                             card.sms)
+            route += f" (splits {splits})"
         print(f"[kernel] flash_attention {label}: B={B} Sq={Sq} Sk={Sk} "
-              f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: "
+              f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: route {route}; "
               f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
-              f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms, library "
+              f"{ms:.4f} ms (device), {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
+              f"the bound; plain {plain_ms:.4f} ms, library "
               f"(scaled_dot_product_attention) "
               + ("none (no softcap)" if lib_ms is None else
-                 f"{lib_ms:.4f} ms")
+                 f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x")
               + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
               f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
               f"{bytes_ms:.4f} ms)", flush=True)
@@ -584,13 +604,45 @@ def phase_flash_kernel(card):
                                  f"{label}, {err:.3e}")
         records[label] = {
             "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
+            "source": "src/repro_torch/kernels/flash_attention/csrc",
+            "sources": FLASH_SOURCES,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
         del q, k, v, got, want
-    return records["zamba2 prefill"]
+    flash_partials_check()
+    rec = records["zamba2 prefill"]
+    rec["decode_ms"] = records["zamba2 decode"]["ms"]
+    return rec
+
+
+def flash_partials_check(splits=5):
+    """The decode route's float32 split partials (m, l, acc) at Zamba2's
+    decode shape against ``ref.attention_partials``, and their merge
+    against ``ref.attention_reference``."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    B, M, pos = SERVE_BATCH, SERVE_MAX_SEQ, DECODE_POS
+    mask = dict(causal=True, q_offset=pos, length=pos + 1)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(s, generator=g, device="cuda")
+               for s in ((B, 1, 32, 112), (B, M, 32, 112), (B, M, 32, 112)))
+    got = fa_kernel.flash_decode_partials_cuda(q, k, v, splits=splits,
+                                               **mask)
+    want = fa_ref.attention_partials(q, k, v, splits, **mask)
+    torch.cuda.synchronize()
+    errs = [((x - y).abs().max() / y.abs().max().clamp_min(1.0)).item()
+            for x, y in zip(got, want)]
+    merged = fa_ref.combine_partials(*got)
+    gap = (merged - fa_ref.attention_reference(q, k, v, **mask)
+           ).abs().max().item()
+    print(f"[kernel] flash_decode partials, {splits} splits at Zamba2's "
+          f"decode shape, float32: max|kernel-plain| / max(1, max|plain|) "
+          f"m {errs[0]:.3e}, l {errs[1]:.3e}, acc {errs[2]:.3e}; their "
+          f"merge vs attention_reference {gap:.3e} (limit "
+          f"{FLASH_TOL[torch.float32]:g} each)", flush=True)
+    if not max(errs + [gap]) <= FLASH_TOL[torch.float32]:
+        raise AssertionError("flash decode partials disagree with plain")
 
 
 def gla_cases():
@@ -796,8 +848,11 @@ def kernel_counters():
 
 
 def reset_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     for k in kernel_counters():
         k.launches = 0
+    fa_kernel.flash_attention_cuda.routes = dict.fromkeys(
+        fa_kernel.SOURCES, 0)
 
 
 def read_counts():
@@ -806,7 +861,9 @@ def read_counts():
 
 
 OURS = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel",
-        "flash_attention_kernel", "gla_scan_kernel")
+        "flash_attention_kernel", "flash_prefill_bf16_kernel",
+        "flash_decode_split_kernel", "flash_decode_combine_kernel",
+        "gla_scan_kernel")
 
 
 def profile_call(fn, fname, what):
@@ -1065,12 +1122,14 @@ def launches_per_call(cfg):
 
 def phase_serve():
     """Carbon-aware serving at full published width on the card: both
-    models, exact launch counts, a decode-vs-prefill check, and a profiled
-    Zamba2 decode step. Returns the launches of #4 and #5."""
+    models, exact launch counts (#4's by route too), a decode-vs-prefill
+    check, and a profiled Zamba2 decode step. Returns the launches of #4
+    and #5, and #4's calls by route."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
-    totals = [0, 0]
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    totals, routes = [0, 0], {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).config.replace(remat="none")
         t0 = time.perf_counter()
@@ -1088,6 +1147,7 @@ def phase_serve():
                     gen=SERVE_GEN, rounds=SERVE_ROUNDS, carbon_aware=True,
                     device="cuda", model=model)
         counts = read_counts()
+        by_route = dict(fa_kernel.flash_attention_cuda.routes)
         peak = torch.cuda.max_memory_allocated() / 2**30
         pre, tok = launches_per_call(cfg)
         want = [SERVE_ROUNDS * (p + SERVE_GEN * t) for p, t in zip(pre, tok)]
@@ -1105,6 +1165,17 @@ def phase_serve():
             raise AssertionError(f"{arch}: serving launched kernels #1 to #5 "
                                  f"{counts} times, expected "
                                  f"{[0, 0, 0, *want]}")
+        # bf16 prefills take the tensor-core route, decode steps split-KV
+        want_routes = {"flash_prefill": SERVE_ROUNDS * pre[0],
+                       "flash_decode": SERVE_ROUNDS * SERVE_GEN * tok[0],
+                       "flash_attention": 0}
+        print(f"[serve] {arch}: #4 calls by route {by_route} (expected "
+              f"{want_routes})", flush=True)
+        if by_route != want_routes:
+            raise AssertionError(f"{arch}: #4 routes {by_route}, expected "
+                                 f"{want_routes}")
+        for r, n in by_route.items():
+            routes[r] = routes.get(r, 0) + n
         for r, toks in enumerate(res.tokens):
             if toks.shape != (res.batches[r], SERVE_GEN + 1) or not (
                     (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -1116,7 +1187,7 @@ def phase_serve():
             profile_decode(model)
         del model
         torch.cuda.empty_cache()
-    return totals
+    return totals, routes
 
 
 def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
@@ -1317,7 +1388,8 @@ def main():
     # kernel #1 counts on the main path; #2 and #3 on the slice path;
     # #4 and #5 on the serving path
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
-    records[3]["launches"], records[4]["launches"] = phase_serve()
+    (records[3]["launches"], records[4]["launches"]), \
+        records[3]["launches_by_route"] = phase_serve()
     phase_cross_device()
     phase_cross_device(slice_path=True)
     phase_serve_golden()

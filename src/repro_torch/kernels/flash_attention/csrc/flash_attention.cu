@@ -1,17 +1,20 @@
-// Flash attention for Hopper (sm_90a): block-tiled online softmax on CUDA
-// cores.
+// Flash attention for Hopper (sm_90a), the float32 prefill route: block-
+// tiled online softmax on the CUDA cores.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py,
-// flash_attention (body _flash_kernel), and computes what
-// ref.attention_reference computes, the decode call included: GQA, causal
-// and sliding-window masks, logit softcap, a runtime query offset and a
-// runtime cache length.
+// Replaces, with flash_prefill.cu (bf16 prefill) and flash_decode.cu
+// (decode, Sq <= 16, both types), the TPU kernel
+// src/repro/kernels/flash_attention/kernel.py, flash_attention (body
+// _flash_kernel), and computes what ref.attention_reference computes: GQA,
+// causal and sliding-window masks, logit softcap, a runtime query offset
+// and a runtime cache length.
 //
-// What bounds it on this card: a prefill (Sq = Sk = 1,024, H = 112) does
-// 4 * H flops per attended (q, k) pair against 2 * H * 2 bytes per key, far
-// above the 295 flops a byte at which the bf16 tensor cores, not the memory,
-// set the limit; a decode call (Sq = 1 over the cache) reads every cached
-// key and value once and is bound by bytes.
+// Only float32 calls with Sq > 16 come here. They stay on the CUDA cores on
+// purpose: TF32 tensor cores keep about three decimal digits, which would
+// miss the float32 cases' 2e-5 limit, and those cases exist to catch a mask
+// one key off. The kernel is the first port's, unchanged.
+//
+// What bounds it on this card: a prefill (Sq = Sk = 512, H = 112) does
+// 4 * H flops per attended (q, k) pair, FP32 operations at 67 TFLOP/s.
 //
 // What the design does about it: one block of 128 threads per (batch *
 // query head, tile of BM query rows); the TPU's sequential kv grid axis is
@@ -22,43 +25,15 @@
 // register micro-tile of RM x 4 per thread, and tiles that the causal mask,
 // the window or the cache length masks whole are never loaded. The query
 // head folds onto its KV head by index (n / (N / K)); q, k and v are read
-// through their strides, in bf16 or float32, and accumulated in float32.
-// Decode-sized calls (Sq <= 16) take a 16-row query tile. Tensor cores
-// (mma.sync or wgmma) and TMA are the next step; this is the simple kernel.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// through their strides and accumulated in float32.
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int NT = 128;            // threads per block
 constexpr int BN = 32;             // keys per tile
-constexpr float NEG_INF = -1e30f;  // the reference's mask value
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a cast does
-}
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, Sq, Sk, N, K, H;
-  long long sq[3], sk[3], sv[3];  // strides over (batch, seq, head)
-  int causal, window, q_offset, kv_len;
-  float scale, softcap;
-};
-
 template <int BM, int HMAX>
 constexpr int smem_floats() {
   // Q tile, K tile (rows padded to HMAX + 1), V tile, probabilities
@@ -243,33 +218,27 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  const bool decode = a.Sq <= 16;
-  if (a.H <= 64)
-    return decode ? run<T, 16, 64>(a, stream) : run<T, 64, 64>(a, stream);
-  if (a.H <= 128)
-    return decode ? run<T, 16, 128>(a, stream) : run<T, 64, 128>(a, stream);
-  return decode ? run<T, 16, 256>(a, stream) : run<T, 32, 256>(a, stream);
+  if (a.H <= 64) return run<float, 64, 64>(a, stream);
+  if (a.H <= 128) return run<float, 64, 128>(a, stream);
+  return run<float, 32, 256>(a, stream);
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16. q (B, Sq, N, H), k and v (B, Sk, K, H),
-// each with unit stride over H and the given strides (in elements) over
-// batch, sequence and head; o (B, Sq, N, H) contiguous in q's type.
-// window <= 0 means no window; keys at or past kv_len are masked out.
-extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int Sk, int N, int K, int H, int sqb, int sqs, int sqn, int skb,
-    int sks, int skn, int svb, int svs, int svn, int causal, int window,
-    int q_offset, int kv_len, float scale, float softcap, void* stream) {
-  if (H < 1 || H > 256 || K < 1 || N % K != 0) return (int)cudaErrorInvalidValue;
+// q (B, Sq, N, H), k and v (B, Sk, K, H), float32, each with unit stride
+// over H and the given strides (in elements) over batch, sequence and head;
+// o (B, Sq, N, H) contiguous. window <= 0 means no window; keys at or past
+// kv_len are masked out. The grid's y axis holds B * N (< 65,536).
+extern "C" int flash_prefill_f32_fwd(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Sk, int N, int K, int H, int sqb, int sqs, int sqn, int skb, int sks,
+    int skn, int svb, int svs, int svn, int causal, int window, int q_offset,
+    int kv_len, float scale, float softcap, void* stream) {
+  if (H < 1 || H > 256 || K < 1 || N % K != 0 || B * N > 65535)
+    return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, B, Sq, Sk, N, K, H,
          {sqb, sqs, sqn}, {skb, sks, skn}, {svb, svs, svn},
          causal, window, q_offset, kv_len, scale, softcap};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(a, st)
-                                     : dispatch<float>(a, st);
-  return (int)err;
+  return (int)dispatch(a, static_cast<cudaStream_t>(stream));
 }

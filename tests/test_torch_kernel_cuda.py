@@ -12,7 +12,9 @@ plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s. The
 CVaR epoch over K identical members is kernel #1 to 1e-6 (they share their
 device code, so bitwise is expected). Flash attention (#4): 2e-5 in float32
 and 2e-2 in bf16 against ``ref.attention_reference``, as
-``tests/test_kernels_flash.py`` holds the TPU kernel. The GLA scan (#5):
+``tests/test_kernels_flash.py`` holds the TPU kernel; the decode route's
+float32 split partials 2e-5 of max(1, max|plain|) against
+``ref.attention_partials``. The GLA scan (#5):
 1e-4 of max|o| on the output and of max|state| on the final state against
 ``ref.gla_chunked`` (the kernel walks a chunk in tiles of up to 64 rows and
 sums in another order).
@@ -240,6 +242,27 @@ FLASH_CASES = [
     (2, 1, 80, 4, 2, 32, True, None, None, 45, 46, torch.float32),
     (3, 1, 90, 4, 4, 112, True, None, None, 60, 61, torch.bfloat16),
     (2, 1, 50, 16, 8, 128, True, 16, 50.0, 30, 31, torch.bfloat16),
+    # the tensor-core prefill route (bf16, Sq > 16) at each padded width
+    (2, 200, 200, 4, 2, 64, True, None, None, 0, None, torch.bfloat16),
+    (1, 333, 333, 4, 4, 112, True, None, None, 0, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 128, False, None, None, 0, None, torch.bfloat16),
+    (1, 300, 300, 4, 2, 256, True, 100, 50.0, 0, None, torch.bfloat16),
+    (1, 1000, 1000, 8, 8, 112, True, None, None, 0, None, torch.bfloat16),
+    (1, 90, 120, 4, 2, 36, True, None, None, 30, 100, torch.bfloat16),
+    # the split-KV decode route: length 1, a split boundary (64 keys) and
+    # one either side, the whole cache, a window across splits, Qwen3's
+    # G = 2, several query rows, an unaligned head dim
+    (2, 1, 300, 8, 4, 128, True, None, None, 0, 1, torch.float32),
+    (2, 1, 300, 4, 4, 112, True, None, None, 126, 127, torch.float32),
+    (2, 1, 300, 4, 4, 112, True, None, None, 127, 128, torch.float32),
+    (2, 1, 300, 4, 4, 112, True, None, None, 128, 129, torch.float32),
+    (2, 1, 300, 8, 4, 64, True, None, None, 299, 300, torch.float32),
+    (2, 1, 600, 8, 4, 64, True, 200, None, 500, 501, torch.float32),
+    (4, 1, 1064, 16, 8, 128, True, None, None, 1040, 1041, torch.bfloat16),
+    (4, 1, 1064, 16, 8, 128, True, None, None, 1040, 1041, torch.float32),
+    (1, 5, 200, 8, 2, 64, True, None, None, 150, 155, torch.float32),
+    (2, 1, 100, 4, 2, 256, True, None, 30.0, 80, 81, torch.bfloat16),
+    (2, 1, 70, 4, 2, 33, True, None, None, 60, 61, torch.bfloat16),
 ]
 
 
@@ -274,6 +297,29 @@ def test_flash_kernel_reads_strided_cache_views(cuda_device):
     want = fa_ref.attention_reference(q, kc, vc, q_offset=20, length=21)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", (1, 3, 7))
+def test_flash_decode_partials_match_plain_on_card(cuda_device, splits):
+    """The decode route's float32 split partials (m, l, acc), a split
+    with no key among them at 7 splits, against ``ref.attention_partials``;
+    their merge against ``ref.attention_reference``."""
+    g = torch.Generator().manual_seed(splits)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda_device)
+               for shape in ((2, 2, 8, 64), (2, 120, 4, 64), (2, 120, 4, 64)))
+    kw = dict(causal=True, window=10, q_offset=100, length=101)
+    got = fa_kernel.flash_decode_partials_cuda(q, k, v, splits=splits, **kw)
+    want = fa_ref.attention_partials(q, k, v, splits, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert ((x - y).abs().max() / y.abs().max().clamp_min(1.0)
+                ).item() < 2e-5
+    merged = fa_ref.combine_partials(*got)
+    assert torch.isfinite(merged).all()
+    assert (merged - fa_ref.attention_reference(q, k, v, **kw)
+            ).abs().max().item() < 2e-5
 
 
 @pytest.mark.cuda
