@@ -15,12 +15,15 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3).
    Max error, conservation residual, bound violations, kernel and plain
    times (CUDA events, median of 20 after warm-up; fewer for the slowest
-   plain runs) and the least time the card could take for the same work;
-   and #2 over identical members against #1. Then flash attention (#4) at
+   plain runs), the least time the card could take for the same work and
+   the shuffle-issue floor of each kernel's layout (#1 and #2: row groups
+   of ``kernel.LANES`` lanes); and #2 over identical members against #1. Then flash attention (#4) at
    the serving path's prefill and decode shapes of Zamba2-7B and
    Qwen3-0.6B, a ragged length, and GQA, window and softcap cases, timed
    beside ``scaled_dot_product_attention``, with each call's route (and
-   key splits for decode), TFLOP/s and share of the bound; the decode
+   key splits for decode), TFLOP/s and share of the bound; at the four
+   bf16 serving calls, how the route rounds P (against the reference and
+   against float32 attention, the TPU kernel's arithmetic); the decode
    route's float32 split partials against ``ref.attention_partials``;
    and the GLA scan (#5) at
    Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
@@ -205,7 +208,7 @@ class Card:
     """The card's rates for the bounds: FP32 peak (every SM issues 128
     FP32 lanes a clock, an FMA counting as two operations: 67 TFLOP/s on a
     132-SM H100 SXM at 1980 MHz), the HBM rate, and one warp shuffle per
-    SM and clock (the issue floor of the one-warp-per-row designs)."""
+    SM and clock (the issue floor of the PGD kernels' reductions)."""
 
     def __init__(self, sms, clock_mhz):
         self.sms = sms
@@ -602,6 +605,8 @@ def phase_flash_kernel(card):
         if not err <= tol:
             raise AssertionError(f"flash attention disagrees with plain: "
                                  f"{label}, {err:.3e}")
+        if label in P_ROUNDING_CASES:
+            p_rounding(label, route, got, want, q, k, v, mask)
         records[label] = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc",
@@ -614,6 +619,35 @@ def phase_flash_kernel(card):
     rec = records["zamba2 prefill"]
     rec["decode_ms"] = records["zamba2 decode"]["ms"]
     return rec
+
+
+# the bf16 serving calls whose rounding of P is held against the TPU
+# kernel's arithmetic
+P_ROUNDING_CASES = ("zamba2 prefill", "zamba2 decode", "qwen3 prefill (GQA)",
+                    "qwen3 decode (GQA)")
+
+
+def p_rounding(label, route, got, want, q, k, v, mask):
+    """How a bf16 route rounds P, at a serving shape: the kernel's output
+    against ``ref.attention_reference`` (which rounds the normalised P to
+    bf16 before P V) and against float32 attention of the same bf16 inputs,
+    rounded to bf16 only at the output (the TPU kernel's arithmetic: it
+    keeps P in float32); and the reference against that float32
+    attention."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    f32 = fa_ref.attention_reference(q.float(), k.float(), v.float(),
+                                     **mask).to(q.dtype).float()
+    got, want = got.float(), want.float()
+    print(f"[kernel] flash_attention P rounding, {label}: route {route}; "
+          f"max|kernel - attention_reference| "
+          f"{(got - want).abs().max().item():.3e}, max|kernel - float32 "
+          f"attention| {(got - f32).abs().max().item():.3e}, "
+          f"max|attention_reference - float32 attention| "
+          f"{(want - f32).abs().max().item():.3e}; mean|kernel - float32 "
+          f"attention| {(got - f32).abs().mean().item():.3e}, "
+          f"mean|attention_reference - float32 attention| "
+          f"{(want - f32).abs().mean().item():.3e} (max|float32 attention| "
+          f"{f32.abs().max().item():.3e})", flush=True)
 
 
 def flash_partials_check(splits=5):

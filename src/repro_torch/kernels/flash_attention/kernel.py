@@ -15,6 +15,33 @@ replace ``src/repro/kernels/flash_attention/kernel.py:85``
   the CUDA cores, kept because TF32 tensor cores would miss float32's 2e-5
   limit.
 
+How the bf16 routes round P (the probabilities before P V). The TPU kernel
+(``src/repro/kernels/flash_attention/kernel.py:54-82``) casts q, k and v to
+float32, keeps P in float32 and rounds only the output; its XLA reference,
+and ``ref.attention_reference`` with it, rounds the normalised P to v's type
+before P V. The decode route keeps P in float32, as the TPU kernel does. The
+prefill route rounds the unnormalised exp(s - m) to bf16 for ``mma.sync``
+and divides by the float32 row sum at the end. Against float32 attention of
+the same bf16 inputs, rounded to bf16 at the output (the TPU kernel's
+arithmetic), at the serving shapes (``chip_smoke.py``'s "P rounding" lines;
+NVIDIA H100 80GB HBM3, 700 W), mean |error| over the output:
+
+=====================  ===========  ==========================
+call                   this route   ``ref.attention_reference``
+=====================  ===========  ==========================
+Zamba2 prefill         1.003e-04    1.233e-04
+Qwen3 prefill          1.001e-04    1.233e-04
+Zamba2 decode          1.294e-08    6.812e-05
+Qwen3 decode           1.164e-10    6.589e-05
+=====================  ===========  ==========================
+
+The max |error| of both prefill sides is one bf16 unit of the largest
+outputs (1.562e-02 at |o| up to 4); decode's is 1.221e-04 / 9.537e-07
+against the reference's 9.766e-04. So the prefill route deviates from the
+TPU kernel by less than the reference does, and the decode route matches
+it; a decode step and a prefill of the same tokens differ by the prefill's
+rounding of P. The 2e-2 limit against the reference holds on both routes.
+
 Each source is built and loaded through ``kernels/nvcc.py`` at first use;
 nothing is compiled when this module is imported. ``flash_attention_cuda``
 launches on ``torch.cuda.current_stream()`` and adds one to its

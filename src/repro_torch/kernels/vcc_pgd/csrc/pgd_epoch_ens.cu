@@ -14,16 +14,38 @@
 //   grad   = (lambda_e * eta_w + price * w_w) * pi * tau24
 //   d      = project(d - lr * grad)                 (as in pgd_epoch.cu)
 //
-// Design: kernel #1's layout (one warp per row, hour h in lane h, lanes
-// H..31 masked; pgd_common.cuh). Each warp keeps its row's K members of eta
-// and pow_nom, this step's K softmax rows, the K member costs and the K
-// member logits (then weights) in its own slice of shared memory:
-// (3 * 32 K + 64) floats, so 8 / 4 / 2 warps per block for K <= 8 / 16 /
-// 32 (about 25 KB a block). In the member softmax over K, lane k forms
-// member k's logit, exponential and weight once; every lane reduces the
-// same K values in the same order, so the bisection branch stays uniform.
-// With K identical members every anchored deviation is exactly 0, and the
-// step is kernel #1's step.
+// Design: kernel #1's row-group layout (pgd_common.cuh; kLanes lanes a
+// row, ceil(H / kLanes) hours a lane, 32 / kLanes rows a warp, tail groups
+// on zeros). Where a lane keeps its hours of the member stacks:
+//
+// * K <= 8: the K members of eta and pow_nom, and the K member scalars, in
+//   registers (2 K NH + K floats, the member loops unrolled 8 times); the
+//   step's K softmax rows in the lane's own slots of shared memory (K NH
+//   floats: in registers they would cost another K NH a thread, and
+//   occupancy with them). ptxas gives the H = 24 instance 254 registers,
+//   no spills: 8 warps an SM;
+// * 8 < K <= 32: all of it in the lane's own slots (3 K NH + K floats; up to
+//   102 KB a warp at K = 32, H = 32, so two warps a block fit the SM's
+//   227 KB at kLanes >= 4 only).
+//
+// The member softmaxes run 8 (K <= 8) or 4 members a pass with their
+// reductions interleaved stage by stage (softmax_weights_many): one member
+// at a time, each of its four reductions waited on two shuffles in turn,
+// and the step was a chain of 32 of them. The divisions of the softmax and
+// of the member weights are multiplies by a reciprocal: as IEEE divisions
+// they were calls with a slow path and took most of the kernel's
+// instructions (cuobjdump; 1.86 -> 1.19 ms at the slice path's shape).
+//
+// A lane's slots are 32 floats apart and no other lane touches them, so
+// they are free of bank conflicts and need no barrier. The member weights
+// (mean, deviation, logits, softmax over K) are a scalar loop that every
+// lane of a group runs alike on the group's reduced costs, so the inputs of
+// the bisection stay the same bits on every lane of the group.
+//
+// #2 calls the group primitives of #1 (softmax_weights, project_rows,
+// box_terms) in #1's order and the explicit-FMA step expressions (power_at,
+// descend): with K identical members every anchored deviation is exactly
+// 0, and the epoch gives #1's bits.
 //
 // Operand layout: the member stacks are read where they lie, (B, K, n, H)
 // contiguous with rows = B * n (B = 1 for a (K, rows, H) stack): member k of
@@ -31,111 +53,244 @@
 // copy them per launch.
 //
 // Reductions a row and step: 4 K (softmax max and sum, two cost sums per
-// member) + 52 (the projection); 2 more once an epoch.
+// member) + 52 (the projection, fewer with the early exit); 2 more once an
+// epoch; each log2(kLanes) shuffle stages. At kLanes = 4 and K = 8, 21
+// warp shuffles a row and step, where the warp-per-row design issued 420.
 #include "pgd_common.cuh"
 
 namespace {
 
 using namespace vcc_pgd;
 
-__global__ void pgd_epoch_ens_kernel(
-    const float* __restrict__ delta, const float* __restrict__ eta_e,
-    const float* __restrict__ pi, const float* __restrict__ pow_e,
-    const float* __restrict__ tau24, const float* __restrict__ price,
-    const float* __restrict__ lo, const float* __restrict__ ub,
-    const float* __restrict__ lr, const float* __restrict__ temp,
-    const float* __restrict__ lambda_e, const float* __restrict__ risk_s,
-    float* __restrict__ out, int rows, int H, int n, int K, int iters,
-    int proj_iters, int warps_per_block) {
+constexpr int kRegMembers = 8;  // K <= 8: eta and pow_nom in registers
+
+struct EnsArgs {
+  const float *delta, *eta_e, *pi, *pow_e, *tau24, *price, *lo, *ub, *lr,
+      *temp, *lambda_e, *risk_s;
+  float* out;
+  int rows, H, n, K, iters, proj_iters;
+};
+
+// A lane's stack of per-member values, NH hours each: KR > 0 holds up to KR
+// members in registers (member loops unrolled KR times, so every index is
+// a constant), KR == 0 any K in the lane's own shared-memory slots.
+template <int NH, int KR>
+struct Stack {
+  float v[KR][NH];
+  __device__ __forceinline__ explicit Stack(float*) {}
+  __device__ __forceinline__ float& operator()(int k, int i) {
+    return v[k][i];
+  }
+};
+
+template <int NH>
+struct Stack<NH, 0> {
+  float* p;  // this lane's first slot
+  __device__ __forceinline__ explicit Stack(float* slots) : p(slots) {}
+  __device__ __forceinline__ float& operator()(int k, int i) {
+    return p[(k * NH + i) * 32];
+  }
+};
+
+// Shared-memory slots a lane takes: the step's softmax rows (K NH), and
+// with KR == 0 also the member stacks of eta and pow_nom (2 K NH) and the
+// member scalars (K).
+__host__ __device__ constexpr int lane_slots(int K, int NH, int KR) {
+  return KR > 0 ? K * NH : 3 * K * NH + K;
+}
+
+template <int NH, int KR>
+__global__ void __launch_bounds__(kBlockWarps * 32)
+pgd_epoch_ens_kernel(const EnsArgs a) {
   extern __shared__ float smem[];
+  constexpr int kUnroll = KR > 0 ? KR : 1;
+  // members a pass of the softmax: all KR of them from registers, else 4
+  constexpr int kMemberBatch = KR > 0 ? KR : 4;
+  constexpr int kChunkUnroll = KR > 0 ? 2 : 1;  // one pass, or a loop
+  const int K = a.K;
+  const int kEnd = KR > 0 ? KR : K;   // member loops: k < kEnd and k < K
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * warps_per_block + warp;
-  if (row >= rows) return;  // the whole warp leaves together
-  const bool on = lane < H;
-  const size_t off = static_cast<size_t>(row) * H + lane;
+  const int j = threadIdx.x % kLanes;
+  const int row = blockIdx.x * kBlockRows + threadIdx.x / kLanes;
+  const bool live = row < a.rows;
+  const size_t base = static_cast<size_t>(live ? row : 0) * a.H + j;
 
-  float* s_eta = smem + static_cast<size_t>(warp) * (3 * 32 * K + 64);
-  float* s_pow = s_eta + 32 * K;
-  float* s_w = s_pow + 32 * K;
-  float* s_cost = s_w + 32 * K;
-  float* s_t = s_cost + 32;
+  float* slots = smem + (threadIdx.x >> 5) * 32 * lane_slots(K, NH, KR) +
+                 lane;
+  Stack<NH, 0> w(slots);
+  Stack<NH, KR> eta_k(slots + 32 * K * NH);
+  Stack<NH, KR> pow_k(slots + 64 * K * NH);
+  Stack<1, KR> c(slots + 96 * K * NH);  // member costs, logits, exps
 
-  const size_t b = static_cast<size_t>(row / n);
-  const size_t c = static_cast<size_t>(row % n);
-  for (int k = 0; k < K; ++k) {
-    const size_t m = ((b * K + k) * n + c) * H + lane;
-    s_eta[k * 32 + lane] = on ? eta_e[m] : 0.f;
-    s_pow[k * 32 + lane] = on ? pow_e[m] : 0.f;
+  float d[NH], p[NH], lo[NH], ub[NH];
+  bool on[NH];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    on[i] = j + kLanes * i < a.H;
+    const bool ld = live && on[i];
+    const size_t off = base + kLanes * i;
+    d[i] = ld ? a.delta[off] : 0.f;
+    p[i] = ld ? a.pi[off] : 0.f;
+    lo[i] = ld ? a.lo[off] : 0.f;
+    ub[i] = ld ? a.ub[off] : 0.f;
   }
-
-  float d = on ? delta[off] : 0.f;
-  const float p_h = on ? pi[off] : 0.f;
-  const float lo_h = on ? lo[off] : 0.f;
-  const float ub_h = on ? ub[off] : 0.f;
-  const float t24 = tau24[row];
-  const float pr = price[row];
-  const float step = lr[row];
-  const float tmp = temp[row];
-  const float lam = lambda_e[row];
-  const float rs = risk_s[row];
-  const float kf = static_cast<float>(K);
-
-  const float ub_max = warp_max(on ? ub_h : -INFINITY);
-  const float lo_min = warp_min(on ? lo_h : INFINITY);
-
-  for (int it = 0; it < iters; ++it) {
-    const float pi_d = __fmul_rn(p_h, d);
-    for (int k = 0; k < K; ++k) {
-      const float ph = power_at(s_pow[k * 32 + lane], pi_d, t24);
-      const float w = softmax_weight(ph, tmp, on);
-      s_w[k * 32 + lane] = w;
-      const float ce = warp_sum(on ? s_eta[k * 32 + lane] * ph : 0.f);
-      const float cw = warp_sum(on ? w * ph : 0.f);
-      if (lane == 0) s_cost[k] = lam * ce + pr * cw;
+  const size_t rb = live ? row / a.n : 0;
+  const size_t rc = live ? row % a.n : 0;
+#pragma unroll (kUnroll)
+  for (int k = 0; k < kEnd; ++k) {
+    if (k < K) {
+      const size_t m = ((rb * K + k) * a.n + rc) * a.H + j;
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+        const bool ld = live && on[i];
+        eta_k(k, i) = ld ? a.eta_e[m + kLanes * i] : 0.f;
+        pow_k(k, i) = ld ? a.pow_e[m + kLanes * i] : 0.f;
+      }
     }
-    __syncwarp();
+  }
+  const float t24 = live ? a.tau24[row] : 0.f;
+  const float pr = live ? a.price[row] : 0.f;
+  const float step = live ? a.lr[row] : 0.f;
+  const float rtmp = __frcp_rn(live ? a.temp[row] : 1.f);
+  const float lam = live ? a.lambda_e[row] : 0.f;
+  const float rs = live ? a.risk_s[row] : 0.f;
+  const float rk = __frcp_rn(static_cast<float>(K));
 
-    // member weights: the mean and deviation are a scalar loop that every
-    // lane runs alike; lane k < K forms member k's logit, exponential and
-    // weight once and shares it through s_t / s_cost, and every lane then
-    // reads the same K values in the same order, so the max and the sum
-    // (and the bisection branch after them) stay uniform
-    const float c0 = s_cost[0];
+  float ub_max, lo_min;
+  box_terms(lo, ub, on, ub_max, lo_min);
+
+  for (int it = 0; it < a.iters; ++it) {
+    float pi_d[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) pi_d[i] = __fmul_rn(p[i], d[i]);
+    // each member's softmax row and cost, kMemberBatch members at a time
+    // with their reductions interleaved (all K <= 8 in one pass); masked
+    // hours hold eta = pow = 0 and w = 0, so they add 0 to the cost sums
+    // without a select
+#pragma unroll (kChunkUnroll)
+    for (int k0 = 0; k0 < kEnd; k0 += kMemberBatch) {
+      float x[kMemberBatch][NH], ce[kMemberBatch], cw[kMemberBatch];
+#pragma unroll
+      for (int kk = 0; kk < kMemberBatch; ++kk) {
+        const bool mk = k0 + kk < K;
+        float t[NH];
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          x[kk][i] = power_at(mk ? pow_k(k0 + kk, i) : 0.f, pi_d[i], t24);
+          t[i] = (mk ? eta_k(k0 + kk, i) : 0.f) * x[kk][i];
+        }
+        ce[kk] = tree<0, NH>(t, Add());
+      }
+      softmax_weights_many(x, rtmp, on);
+#pragma unroll
+      for (int kk = 0; kk < kMemberBatch; ++kk) {
+        const bool mk = k0 + kk < K;
+        float t[NH];
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          const float ph =
+              power_at(mk ? pow_k(k0 + kk, i) : 0.f, pi_d[i], t24);
+          t[i] = x[kk][i] * ph;
+          if (mk) w(k0 + kk, i) = x[kk][i];
+        }
+        cw[kk] = tree<0, NH>(t, Add());
+      }
+      group_finish_many(ce, Add());
+      group_finish_many(cw, Add());
+#pragma unroll
+      for (int kk = 0; kk < kMemberBatch; ++kk)
+        if (k0 + kk < K) c(k0 + kk, 0) = lam * ce[kk] + pr * cw[kk];
+    }
+
+    // member weights, on every lane alike: mean and deviation of the
+    // costs, the logits (over c, then their exponentials over c)
+    const float c0 = c(0, 0);
     float mean = 0.f;
-    for (int k = 0; k < K; ++k) mean += s_cost[k];
-    mean = mean / kf;
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kEnd; ++k)
+      if (k < K) mean += c(k, 0);
+    mean = mean * rk;
     float mad = 0.f;
-    for (int k = 0; k < K; ++k) mad += fabsf(s_cost[k] - mean);
-    const float scale = mad / kf + 1e-9f;
-    const bool mem = lane < K;
-    const float t = mem ? rs * (s_cost[lane] - c0) / scale : 0.f;
-    if (mem) s_t[lane] = t;
-    __syncwarp();  // logits in; every lane has read the costs
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kEnd; ++k)
+      if (k < K) mad += fabsf(c(k, 0) - mean);
+    const float rscale = __frcp_rn(mad * rk + 1e-9f);
     float t_max = -INFINITY;
-    for (int k = 0; k < K; ++k) t_max = fmaxf(t_max, s_t[k]);
-    const float e = mem ? expf(t - t_max) : 0.f;
-    if (mem) s_cost[lane] = e;
-    __syncwarp();  // exponentials in; every lane has read the logits
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kEnd; ++k) {
+      if (k < K) {
+        const float t = rs * (c(k, 0) - c0) * rscale;
+        c(k, 0) = t;
+        t_max = fmaxf(t_max, t);
+      }
+    }
     float denom = 0.f;
-    for (int k = 0; k < K; ++k) denom += s_cost[k];
-    if (mem) s_t[lane] = e / denom;
-    __syncwarp();  // weights in
-
-    const float eta0 = s_eta[lane];
-    const float w0 = s_w[lane];
-    float eta_acc = 0.f, w_acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float wm = s_t[k];
-      eta_acc += wm * (s_eta[k * 32 + lane] - eta0);
-      w_acc += wm * (s_w[k * 32 + lane] - w0);
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kEnd; ++k) {
+      if (k < K) {
+        const float ex = expf(c(k, 0) - t_max);
+        c(k, 0) = ex;
+        denom += ex;
+      }
     }
 
-    const float z = descend(d, step, lam, eta0 + eta_acc, pr, w0 + w_acc,
-                            p_h, t24);
-    d = project(z, lo_h, ub_h, ub_max, lo_min, on, proj_iters);
+    const float rden = __frcp_rn(denom);
+    // the anchored member sums, member by member
+    float eta_acc[NH], w_acc[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) eta_acc[i] = w_acc[i] = 0.f;
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kEnd; ++k) {
+      if (k < K) {
+        const float wm = c(k, 0) * rden;
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          eta_acc[i] += wm * (eta_k(k, i) - eta_k(0, i));
+          w_acc[i] += wm * (w(k, i) - w(0, i));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      d[i] = descend(d[i], step, lam, eta_k(0, i) + eta_acc[i], pr,
+                     w(0, i) + w_acc[i], p[i], t24);
+    project_rows(d, lo, ub, ub_max, lo_min, on, a.proj_iters);
   }
-  if (on) out[off] = d;
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    if (live && on[i]) a.out[base + kLanes * i] = d[i];
+}
+
+template <int NH, int KR>
+int launch_members(const EnsArgs& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kBlockWarps) * 32 *
+                      lane_slots(a.K, NH, KR) * sizeof(float);
+  // above 48 KB only once allowed (up to 227 KB: K = 32 at H = 32 takes
+  // 205 KB at kLanes = 4)
+  const cudaError_t err = cudaFuncSetAttribute(
+      pgd_epoch_ens_kernel<NH, KR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (a.rows + kBlockRows - 1) / kBlockRows;
+  pgd_epoch_ens_kernel<NH, KR><<<blocks, kBlockWarps * 32, smem, stream>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the instance of NH = nh hours a lane, members in registers or in
+// shared memory by K.
+template <int NH>
+int launch(int nh, const EnsArgs& a, cudaStream_t stream) {
+  if (nh == NH) {
+    return a.K <= kRegMembers ? launch_members<NH, kRegMembers>(a, stream)
+                              : launch_members<NH, 0>(a, stream);
+  }
+  if constexpr (NH < kLastNH) {
+    return launch<NH + 1>(nh, a, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -155,13 +310,9 @@ extern "C" int pgd_epoch_ens_f32(const float* delta, const float* eta_e,
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   if (H < 1 || H > 32 || K < 1 || K > 32 || n < 1 || rows % n != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int wpb = K <= 8 ? 8 : (K <= 16 ? 4 : 2);
-  const size_t smem = static_cast<size_t>(wpb) * (3 * 32 * K + 64) *
-                      sizeof(float);
-  const int blocks = (rows + wpb - 1) / wpb;
-  pgd_epoch_ens_kernel<<<blocks, wpb * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      delta, eta_e, pi, pow_e, tau24, price, lo, ub, lr, temp, lambda_e,
-      risk_s, out, rows, H, n, K, iters, proj_iters, wpb);
-  return static_cast<int>(cudaGetLastError());
+  const EnsArgs a{delta, eta_e, pi,    pow_e,   tau24, price, lo,
+                  ub,    lr,    temp,  lambda_e, risk_s, out, rows,
+                  H,     n,     K,     iters,   proj_iters};
+  return launch<kFirstNH>((H + kLanes - 1) / kLanes, a,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -10,16 +10,25 @@ their reductions, softmax and projection through ``csrc/pgd_common.cuh``:
 * ``joint_step.cu`` replaces ``kernel.py:207`` (``joint_step_pallas``): one
   joint spatio-temporal step.
 
+The two epochs take the row-group layout: a row of H <= 32 hours goes to
+``LANES`` lanes, each holding ceil(H / LANES) hours in registers, so a warp
+holds 32 / LANES rows and a reduction takes log2(LANES) shuffle stages after
+the lane's own hours; the bisection leaves its loop once no bracket of a warp
+moves (the same bits as the fixed count). The joint step
+keeps one warp a row. ``tools/pgd_probe.py`` times the epochs' variants
+(``build(name, defines=...)``, ``variant``).
+
 They are built, loaded and launched through ``kernels/nvcc.py`` (at first
 use in a process, one library per source under ``build/``, keyed by a hash
-of the source, the shared header and ``NVCC_FLAGS``). Nothing is compiled
+of the source, the shared header and the flags). Nothing is compiled
 or loaded when this module is imported, so the CPU tests import it without
 ``nvcc``.
 
 Each ``*_cuda`` wrapper launches on ``torch.cuda.current_stream()`` and adds
 one to its ``launches`` attribute per launch. Beside each wrapper,
-``*_flops``, ``*_bytes`` and ``*_shuffles`` count the work as its source
-does it (the bound in ``chip_smoke.py`` and PERF.md comes from them).
+``*_flops`` and ``*_bytes`` count the function's work (the bound in
+``chip_smoke.py`` and PERF.md comes from them) and ``*_shuffles`` the warp
+shuffles its source issues (the shuffle-issue floor).
 """
 from __future__ import annotations
 
@@ -41,6 +50,10 @@ HEADERS = (CSRC / "pgd_common.cuh",)
 NVCC_FLAGS = nvcc.FLAGS
 MAX_H = 32
 MAX_MEMBERS = 32
+# the epochs' lanes a row, as csrc/pgd_common.cuh sets them (PGD_LANES),
+# and the shuffle stages of one reduction over a row
+LANES = 4
+STAGES = LANES.bit_length() - 1
 
 _P, _I, _F = nvcc.P, nvcc.I, nvcc.F
 # C entry point and argument kinds (pointer, int, float) of each library,
@@ -51,10 +64,19 @@ _ENTRY = {"pgd_epoch": ("pgd_epoch_f32", _P * 12 + _I * 4),
 _libs = {}
 
 
-def build(name: str = "pgd_epoch", verbose: bool = False):
-    """Compile ``SOURCES[name]`` with ``NVCC_FLAGS`` (``nvcc.build``);
-    returns (library path, seconds, nvcc output)."""
-    return nvcc.build(SOURCES[name], HEADERS, NVCC_FLAGS, verbose=verbose)
+def build(name: str = "pgd_epoch", verbose: bool = False, defines=()):
+    """Compile ``SOURCES[name]`` with ``NVCC_FLAGS`` and a ``-D`` flag for
+    each of ``defines`` (``nvcc.build``); returns (library path, seconds,
+    nvcc output)."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    return nvcc.build(SOURCES[name], HEADERS, flags, verbose=verbose)
+
+
+def variant(name: str, defines):
+    """The entry point of ``SOURCES[name]`` built with ``defines`` (such
+    as ``("PGD_LANES=8", "PGD_EARLY_EXIT=0")``). Put it in ``_libs[name]``
+    and the wrapper launches it; the shipped build is the one without."""
+    return nvcc.load(build(name, defines=defines)[0], *_ENTRY[name])
 
 
 def _load(name: str):
@@ -81,7 +103,7 @@ def _rows_h(delta):
                          f"{tuple(delta.shape)}")
     rows, H = delta.shape
     if not 1 <= H <= MAX_H:
-        raise ValueError(f"the kernel holds one row per warp: H <= {MAX_H}, "
+        raise ValueError(f"the kernels take rows of H <= {MAX_H} hours, "
                          f"got {H}")
     return rows, H
 
@@ -126,9 +148,11 @@ pgd_epoch_cuda.launches = 0
 
 
 def epoch_flops(rows: int, H: int, iters: int, proj_iters: int = 50) -> int:
-    """FP32 operations of one epoch as ``csrc/pgd_epoch.cu`` performs them
-    (each add, multiply, divide, min, max, exp and compare counts one; a
-    reduction over H hours counts H - 1):
+    """FP32 operations of the epoch's function, the bound's yardstick (each
+    add, multiply, divide, min, max, exp and compare counts one; a
+    reduction over H hours counts H - 1, however the kernel's lanes split
+    it; all ``proj_iters`` bisection steps count, as the reference runs
+    them):
 
     per hour and step: pow 3, /temp 1, -max 1, exp 1, /sum 1, grad 5,
     z 2, final clip 3, and 3 per bisection step;
@@ -142,11 +166,13 @@ def epoch_flops(rows: int, H: int, iters: int, proj_iters: int = 50) -> int:
 
 
 def epoch_shuffles(rows: int, iters: int, proj_iters: int = 50) -> int:
-    """Warp-shuffle instructions of one epoch in ``csrc/pgd_epoch.cu``
-    (one warp per row, five butterfly stages per reduction): per step the
-    softmax max and sum, the bracket min and max and one sum per
-    bisection step; once per epoch the max ub / min lo terms."""
-    return rows * (5 * iters * (4 + proj_iters) + 10)
+    """Warp-shuffle instructions of one epoch in ``csrc/pgd_epoch.cu``: a
+    warp holds 32 / ``LANES`` rows and each reduction takes ``STAGES``
+    stages; per step the softmax max and sum, the bracket min and max and
+    one sum per bisection step (all ``proj_iters`` of them: the early exit
+    issues fewer); once per epoch the max ub / min lo terms."""
+    warps = -(-rows * LANES // 32)
+    return warps * STAGES * (iters * (4 + proj_iters) + 2)
 
 
 def epoch_bytes(rows: int, H: int) -> int:
@@ -197,10 +223,9 @@ pgd_epoch_ens_cuda.launches = 0
 
 def ens_epoch_flops(rows: int, H: int, K: int, iters: int,
                     proj_iters: int = 50) -> int:
-    """FP32 operations of one ensemble epoch as ``csrc/pgd_epoch_ens.cu``
-    performs them (counted as ``epoch_flops``; the member weights, which
-    every lane repeats alike or lane k forms for member k, count once a
-    row):
+    """FP32 operations of the ensemble epoch's function (counted as
+    ``epoch_flops``; the member weights, which every lane of a row repeats
+    alike, count once a row):
 
     per member, hour and step: pow 1, softmax 4, the two cost products 2,
     the two anchored accumulations 6;
@@ -220,10 +245,12 @@ def ens_epoch_flops(rows: int, H: int, K: int, iters: int,
 
 def ens_epoch_shuffles(rows: int, K: int, iters: int,
                        proj_iters: int = 50) -> int:
-    """Warp-shuffle instructions of one ensemble epoch: per step four
-    five-stage reductions a member, the bracket min and max and one sum per
-    bisection step; once per epoch the box terms."""
-    return rows * 5 * (iters * (4 * K + 2 + proj_iters) + 2)
+    """Warp-shuffle instructions of one ensemble epoch, in the layout of
+    ``epoch_shuffles``: per step four reductions a member (softmax max and
+    sum, the two cost sums), the bracket min and max and one sum per
+    bisection step (all ``proj_iters``); once per epoch the box terms."""
+    warps = -(-rows * LANES // 32)
+    return warps * STAGES * (iters * (4 * K + 2 + proj_iters) + 2)
 
 
 def ens_epoch_bytes(rows: int, H: int, K: int) -> int:

@@ -10,7 +10,10 @@ Tolerances: atol 1e-4 on delta after 80 steps of either epoch (the kernels
 sum the hours, and the CVaR epoch the members, in another order than the
 plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s. The
 CVaR epoch over K identical members is kernel #1 to 1e-6 (they share their
-device code, so bitwise is expected). Flash attention (#4): 2e-5 in float32
+device code, so bitwise is expected); the epochs with the bisection's early
+exit are their fixed-count builds bit for bit. The epochs' row-group layout
+is held at row counts and widths that leave groups and hours masked.
+Flash attention (#4): 2e-5 in float32
 and 2e-2 in bf16 against ``ref.attention_reference``, as
 ``tests/test_kernels_flash.py`` holds the TPU kernel; the decode route's
 float32 split partials 2e-5 of max(1, max|plain|) against
@@ -44,7 +47,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _rows(n, seed, device):
+def _rows(n, seed, device, H=H):
     g = torch.Generator().manual_seed(seed)
 
     def u(*shape):
@@ -64,17 +67,68 @@ def _rows(n, seed, device):
     return [x.to(device) for x in args], temp.to(device), lam.to(device)
 
 
+def _check_epoch(got, want, lo, ub):
+    """Within 1e-4 of the plain epoch, conserving and inside the box."""
+    assert (got - want).abs().max().item() <= 1e-4
+    assert got.sum(1).abs().max().item() <= 1e-4 * ub.abs().max().item()
+    assert bool(((got >= lo - 1e-6) & (got <= ub + 1e-6)).all())
+
+
+# row counts that no warp's rows divide (kernel.LANES = 4: 8 rows a warp),
+# so the last warp runs groups past the last row
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", (45, 1000))
+@pytest.mark.parametrize("rows", (1, 7, 45, 1000, 1001))
 def test_kernel_matches_plain_on_card(cuda_device, rows):
     args, temp, lam = _rows(rows, rows, cuda_device)
     got = kernel.pgd_epoch_cuda(*args, temp, lam, iters=80)
     want = ref.pgd_epoch_ref(*args, temp=temp, lambda_e=lam, iters=80)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 1e-4
-    lo, ub = args[6], args[7]
-    assert got.sum(1).abs().max().item() <= 1e-4 * ub.abs().max().item()
-    assert bool(((got >= lo - 1e-6) & (got <= ub + 1e-6)).all())
+    _check_epoch(got, want, args[6], args[7])
+
+
+# widths that leave a lane's last hours masked (H % 4 != 0), one hour, and
+# the widest row
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", (1, 7, 23, 24, 32))
+def test_epochs_match_plain_at_every_width(cuda_device, width):
+    rows, K, B = 1001, 3, 7
+    args, eta_e, pow_e, temp, lam, rs = _members(rows, K, width, cuda_device,
+                                                 B, H=width)
+    got = kernel.pgd_epoch_cuda(*args, temp, lam, iters=80)
+    want = ref.pgd_epoch_ref(*args, temp=temp, lambda_e=lam, iters=80)
+    torch.cuda.synchronize()
+    _check_epoch(got, want, args[6], args[7])
+    got, want = _ens_pair(args, eta_e, pow_e, temp, lam, rs, B)
+    _check_epoch(got, want, args[6], args[7])
+
+
+@pytest.mark.cuda
+def test_early_exit_gives_the_fixed_count_bits(cuda_device):
+    """The shipped epochs leave the bisection once no bracket of a warp
+    moves; the same sources built with the fixed count give the same bits
+    (rows past a warp's last row, masked hours, both member layouts)."""
+    fixed = {name: kernel.variant(name, ("PGD_EARLY_EXIT=0",))
+             for name in ("pgd_epoch", "pgd_epoch_ens")}
+    for rows, width, K, B in ((1001, 24, 8, 7), (45, 23, 3, 5),
+                              (7, 32, 32, 1)):
+        args, eta_e, pow_e, temp, lam, rs = _members(rows, K, rows,
+                                                     cuda_device, B, H=width)
+        runs = {}
+        for build in ("shipped", "fixed"):
+            saved = dict(kernel._libs)
+            if build == "fixed":
+                kernel._libs.update(fixed)
+            try:
+                runs[build] = (kernel.pgd_epoch_cuda(*args, temp, lam,
+                                                     iters=80),
+                               _ens_pair(args, eta_e, pow_e, temp, lam, rs,
+                                         B, plain=False)[0])
+            finally:
+                kernel._libs.clear()
+                kernel._libs.update(saved)
+        torch.cuda.synchronize()
+        for got, want in zip(runs["shipped"], runs["fixed"]):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -103,11 +157,11 @@ def test_solve_on_card_goes_through_the_kernel(cuda_device):
                                on_cpu.delta.numpy(), rtol=0, atol=1e-4)
 
 
-def _members(rows, K, seed, device, B=1):
+def _members(rows, K, seed, device, B=1, H=H):
     """A CVaR epoch problem: kernel #1's rows plus K members of intensity
     and nominal power (member 0 the point forecast), stacked (B, K, n, H)
     with B * n = rows."""
-    args, temp, lam = _rows(rows, seed, device)
+    args, temp, lam = _rows(rows, seed, device, H)
     g = torch.Generator().manual_seed(seed + 1)
     delta, eta, pi, pow_nom = (x.cpu() for x in args[:4])
     prof = 1 + 0.4 * (torch.rand(K, 1, H, generator=g) - 0.5)
@@ -124,28 +178,40 @@ def _members(rows, K, seed, device, B=1):
     return args, eta_e, pow_e, temp, lam, risk_s
 
 
+def _ens_pair(args, eta_e, pow_e, temp, lam, rs, B, plain=True):
+    """(kernel #2, its plain version) on one problem, B rollouts; the plain
+    side is None with ``plain=False``."""
+    d, _, pi, _, tau24, price, lo, ub, lr = args
+    rows, width = d.shape
+    got = kernel.pgd_epoch_ens_cuda(d, eta_e, pi, pow_e, tau24, price, lo,
+                                    ub, lr, temp, lam, rs, iters=80)
+    if not plain:
+        return got, None
+
+    def b3(x):
+        return x.reshape(B, rows // B, x.shape[-1])
+
+    want = ref.pgd_epoch_ens_ref(
+        b3(d), eta_e, b3(pi), pow_e, b3(tau24), b3(price), b3(lo), b3(ub),
+        b3(lr), temp=b3(temp), lambda_e=b3(lam), risk_s=b3(rs),
+        iters=80).reshape(rows, width)
+    torch.cuda.synchronize()
+    return got, want
+
+
+# K in {1, 3, 8, 32}, each over B > 1 member stacks: the register (K <= 8)
+# and the shared-memory (K > 8) layouts of the members
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,rows,B", ((8, 45, 1), (3, 1000, 4), (32, 1000, 2)))
+@pytest.mark.parametrize("K,rows,B", ((8, 45, 1), (3, 1000, 4), (32, 1000, 2),
+                                      (1, 1001, 7), (8, 1001, 11),
+                                      (32, 7, 7)))
 def test_ens_kernel_matches_plain_on_card(cuda_device, K, rows, B):
     args, eta_e, pow_e, temp, lam, rs = _members(rows, K, rows + K,
                                                  cuda_device, B)
-    d, _, pi, _, tau24, price, lo, ub, lr = args
     before = kernel.pgd_epoch_ens_cuda.launches
-    got = kernel.pgd_epoch_ens_cuda(d, eta_e, pi, pow_e, tau24, price, lo,
-                                    ub, lr, temp, lam, rs, iters=80)
+    got, want = _ens_pair(args, eta_e, pow_e, temp, lam, rs, B)
     assert kernel.pgd_epoch_ens_cuda.launches == before + 1
-    shape = (B, rows // B)
-    want = ref.pgd_epoch_ens_ref(
-        *(x.reshape(*shape, x.shape[-1]) for x in (d,)), eta_e,
-        *(x.reshape(*shape, x.shape[-1]) for x in (pi,)), pow_e,
-        *(x.reshape(*shape, x.shape[-1]) for x in (tau24, price, lo, ub,
-                                                   lr)),
-        temp=temp.reshape(*shape, 1), lambda_e=lam.reshape(*shape, 1),
-        risk_s=rs.reshape(*shape, 1), iters=80).reshape(rows, H)
-    torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 1e-4
-    assert got.sum(1).abs().max().item() <= 1e-4 * ub.abs().max().item()
-    assert bool(((got >= lo - 1e-6) & (got <= ub + 1e-6)).all())
+    _check_epoch(got, want, args[6], args[7])
 
 
 @pytest.mark.cuda

@@ -114,6 +114,25 @@ def test_kernel_module_imports_without_cuda_and_refuses_cpu_tensors():
     assert kernel.epoch_bytes(22528, 24) == 4 * 22528 * (7 * 24 + 5)
 
 
+def test_epoch_counts_pin_the_layout_and_the_bound():
+    """The shuffle counts follow the row-group layout that the CUDA sources
+    are built with, by hand at H = 24; the operation counts (the bound's
+    yardstick) stay those of the function."""
+    header = (kernel.CSRC / "pgd_common.cuh").read_text()
+    assert f"#define PGD_LANES {kernel.LANES}\n" in header
+    assert kernel.LANES == 4
+    # 8 rows a warp, 2 stages a reduction; #1 reduces 54 times a step
+    # (softmax 2, bracket 2, 50 bisection sums) and twice an epoch: 13.5
+    # shuffles a row and step
+    assert kernel.epoch_shuffles(22528, 80) == 2816 * 2 * (80 * 54 + 2)
+    assert kernel.epoch_shuffles(1001, 80) == 126 * 2 * (80 * 54 + 2)
+    # #2 at K = 8: 4 K + 52 = 84 reductions a step, 21 shuffles a row
+    assert kernel.ens_epoch_shuffles(14336, 8, 80) == \
+        1792 * 2 * (80 * 84 + 2)
+    assert kernel.epoch_flops(22528, 24, 80) == 9_740_341_248
+    assert kernel.ens_epoch_flops(14336, 24, 8, 80) == 9_910_849_536
+
+
 def _problem(seed, lambda_e, n=10, n_dc=3):
     rng = np.random.default_rng(seed)
     f = np.float32
