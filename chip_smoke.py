@@ -6,8 +6,9 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``nvcc`` compiles the seven kernel sources of the port (three
-   of kernel #4: its decode, bf16 prefill and float32 prefill routes) from
+2. build: ``nvcc`` compiles the eight kernel sources of the port (three
+   of kernel #4: its decode, bf16 prefill and float32 prefill routes; two
+   of #5: its tensor-core and CUDA-core routes) from
    their ``csrc/`` into ``build/`` (one compiler process per source, all
    started together, with ``-Xptxas -v``: registers and spills);
 3. kernels against their plain versions on the card, at three row counts
@@ -27,7 +28,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    route's float32 split partials against ``ref.attention_partials``;
    and the GLA scan (#5) at
    Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
-   and in RWKV6-7B's per-channel and bonus + strict modes;
+   and in RWKV6-7B's per-channel and bonus + strict modes, each line
+   naming its route;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
@@ -45,10 +47,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
    then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
-   tokens each, with exact launch counts of #4 and #5, prefill and
-   per-token times, tokens/s and peak memory; a full-width check of a
-   decode step's logits against the prefill of the same tokens; one
-   profiled Zamba2 decode step;
+   tokens each, with exact launch counts of #4 and #5 (and their calls by
+   route), prefill and per-token times, tokens/s and peak memory; a
+   full-width check of a decode step's logits against the prefill of the
+   same tokens; one profiled Zamba2 prefill (the device's busy share and
+   #5's share of it) and one profiled Zamba2 decode step;
 7. the golden configuration, and the slice configuration at golden size,
    on the card (kernels) against the CPU (plain versions), within the
    parity tests' end-to-end tolerances; at golden size the slice's best-of
@@ -155,7 +158,7 @@ def kernel_builds():
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     return [(k, partial(pgd_kernel.build, k)) for k in pgd_kernel.SOURCES] \
         + [(k, partial(fa_kernel.build, k)) for k in fa_kernel.SOURCES] \
-        + [("gla_scan", gla_kernel.build)]
+        + [(k, partial(gla_kernel.build, k)) for k in gla_kernel.SOURCES]
 
 
 def phase_build():
@@ -719,6 +722,10 @@ def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
     return q, k, v, ld, u, h0
 
 
+GLA_SOURCES = [f"src/repro_torch/kernels/linear_scan/csrc/{f}" for f in
+               ("gla_ssd.cu", "gla_scan.cu")]
+
+
 def phase_gla_kernel(card):
     """Kernel #5 against its plain version (both called directly on CUDA
     tensors). The state is float32 and held to 1e-4 of max|state|; so is
@@ -742,7 +749,17 @@ def phase_gla_kernel(card):
         def plain():
             return gla_ref.gla_chunked(q, k, v, ld, **kw)
 
-        (o, hT), (wo, whT) = kern(), plain()
+        before = dict(gla_kernel.gla_cuda.routes)
+        o, hT = kern()
+        ran = [r for r, n in gla_kernel.gla_cuda.routes.items()
+               if n != before[r]]
+        want = gla_kernel.route(dt, K, V, vec=mode != "scalar",
+                                bonus=u is not None, strict=mode == "rwkv")
+        if ran != [want]:
+            raise AssertionError(f"gla scan {label}: launched on {ran}, "
+                                 f"route() says {want}")
+        route = ran[0]
+        wo, whT = plain()
         torch.cuda.synchronize()
         err = (o.float() - wo.float()).abs()
         o_scale = wo.float().abs().max().item()
@@ -760,8 +777,11 @@ def phase_gla_kernel(card):
                                       initial_state=h0)
         bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
         print(f"[kernel] gla_scan {label}: B={B} S={S} H={H} K={K} V={V} "
-              f"{str(dt)[6:]} {mode} chunk={chunk} (tile "
-              f"{gla_kernel.tile_rows(chunk)}) initial state {init}: "
+              f"{str(dt)[6:]} {mode} chunk={chunk} initial state {init}: "
+              f"route {route} "
+              + ("(64-row tiles, tensor cores)" if route == "gla_ssd" else
+                 f"(tile {gla_kernel.tile_rows(chunk)}, CUDA cores)")
+              + ": "
               f"max|o kernel-plain|={err.max().item():.3e} of max|o| "
               f"{o_scale:.3e} (limit {GLA_RTOL:g} x max|o|"
               + (" + 1 bf16 ulp" if ulp else "") + "), max|state "
@@ -775,7 +795,8 @@ def phase_gla_kernel(card):
             raise AssertionError(f"gla scan disagrees with plain: {label}")
         records[label] = {
             "name": "gla_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/linear_scan/csrc/gla_scan.cu",
+            "source": f"src/repro_torch/kernels/linear_scan/csrc/{route}.cu",
+            "sources": GLA_SOURCES, "gla_route": route,
             "replaces": "src/repro/kernels/linear_scan/kernel.py:71",
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
@@ -883,10 +904,12 @@ def kernel_counters():
 
 def reset_counts():
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
     for k in kernel_counters():
         k.launches = 0
     fa_kernel.flash_attention_cuda.routes = dict.fromkeys(
         fa_kernel.SOURCES, 0)
+    gla_kernel.gla_cuda.routes = dict.fromkeys(gla_kernel.SOURCES, 0)
 
 
 def read_counts():
@@ -897,7 +920,7 @@ def read_counts():
 OURS = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel",
         "flash_attention_kernel", "flash_prefill_bf16_kernel",
         "flash_decode_split_kernel", "flash_decode_combine_kernel",
-        "gla_scan_kernel")
+        "gla_scan_kernel", "gla_ssd_kernel")
 
 
 def profile_call(fn, fname, what):
@@ -927,6 +950,7 @@ def profile_call(fn, fname, what):
                  and self_dev_us(e) > 0]
     launchers += [e for e in kernels if "at::native" not in e.key]
     top = sorted(launchers, key=self_dev_us, reverse=True)[:8]
+    ours = {}
     print(f"[profile] {what}: wall {wall_ms:.1f} ms under the "
           f"profiler, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%) in {sum(e.count for e in kernels)}"
@@ -939,6 +963,7 @@ def profile_call(fn, fname, what):
             if f"::{k}" not in e.key:
                 continue
             name = e.key[e.key.index(f"::{k}") + 2:].split("(")[0]
+            ours[k] = ours.get(k, 0.0) + self_dev_us(e) / 1e3
             print(f"[profile]   {name}: "
                   f"{self_dev_us(e) / 1e3:.3f} ms device over {e.count} "
                   f"launches, {self_dev_us(e) / e.count:.2f} us each",
@@ -948,7 +973,7 @@ def profile_call(fn, fname, what):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / fname).write_text(events.table(sort_by=sort_key, row_limit=40))
-    return wall_ms, busy_ms
+    return wall_ms, busy_ms, ours
 
 
 def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
@@ -1089,8 +1114,8 @@ def phase_slice_path():
         {cfg.n_members: sub(led_joint, slice(n_mob * S, None))},
         names[n_mob:], S), sim.RISK_COLUMNS), flush=True)
     split = joint_step_split(last.prob, last.sol, params)
-    wall_ms, busy_ms = profile_day(cfg, params, state,
-                                   "profile_slice_day.txt")
+    wall_ms, busy_ms, _ = profile_day(cfg, params, state,
+                                      "profile_slice_day.txt")
     print(f"[slice] the s projection: {split['proj_ms']:.3f} ms a step x "
           f"{JOINT_ROUNDS * JOINT_STEPS} steps = "
           f"{split['proj_ms'] * JOINT_ROUNDS * JOINT_STEPS:.1f} ms a day, "
@@ -1156,14 +1181,15 @@ def launches_per_call(cfg):
 
 def phase_serve():
     """Carbon-aware serving at full published width on the card: both
-    models, exact launch counts (#4's by route too), a decode-vs-prefill
-    check, and a profiled Zamba2 decode step. Returns the launches of #4
-    and #5, and #4's calls by route."""
+    models, exact launch counts (#4's and #5's by route too), a
+    decode-vs-prefill check, and a profiled Zamba2 prefill and decode step.
+    Returns the launches of #4 and #5, and their calls by route."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    totals, routes = [0, 0], {}
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    totals, routes, gla_routes = [0, 0], {}, {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).config.replace(remat="none")
         t0 = time.perf_counter()
@@ -1182,6 +1208,7 @@ def phase_serve():
                     device="cuda", model=model)
         counts = read_counts()
         by_route = dict(fa_kernel.flash_attention_cuda.routes)
+        gla_by_route = dict(gla_kernel.gla_cuda.routes)
         peak = torch.cuda.max_memory_allocated() / 2**30
         pre, tok = launches_per_call(cfg)
         want = [SERVE_ROUNDS * (p + SERVE_GEN * t) for p, t in zip(pre, tok)]
@@ -1210,6 +1237,15 @@ def phase_serve():
                                  f"{want_routes}")
         for r, n in by_route.items():
             routes[r] = routes.get(r, 0) + n
+        # bf16 Mamba2 prefills take the tensor-core scan
+        want_gla = {"gla_ssd": want[1], "gla_scan": 0}
+        print(f"[serve] {arch}: #5 calls by route {gla_by_route} (expected "
+              f"{want_gla})", flush=True)
+        if gla_by_route != want_gla:
+            raise AssertionError(f"{arch}: #5 routes {gla_by_route}, "
+                                 f"expected {want_gla}")
+        for r, n in gla_by_route.items():
+            gla_routes[r] = gla_routes.get(r, 0) + n
         for r, toks in enumerate(res.tokens):
             if toks.shape != (res.batches[r], SERVE_GEN + 1) or not (
                     (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -1218,10 +1254,11 @@ def phase_serve():
         totals[1] += counts[4]
         decode_consistency(arch, cfg, model)
         if cfg.family == "hybrid":
+            profile_prefill(model, res.prefill_ms)
             profile_decode(model)
         del model
         torch.cuda.empty_cache()
-    return totals, routes
+    return totals, routes, gla_routes
 
 
 def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
@@ -1243,6 +1280,33 @@ def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
           flush=True)
     if not gap <= CONSISTENCY_TOL:
         raise AssertionError(f"{arch}: decode vs prefill gap {gap:.3e}")
+
+
+GLA_KERNELS = ("gla_ssd_kernel", "gla_scan_kernel")
+
+
+def profile_prefill(model, prefill_ms, B=SERVE_BATCH):
+    """One Zamba2 prefill of the serving shape under torch.profiler, after
+    a warm one: the device's busy share and kernel #5's share of it."""
+    toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
+                         device="cuda")
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
+
+    prefill()
+    wall_ms, busy_ms, ours = profile_call(
+        prefill, "profile_serve_prefill.txt",
+        f"one Zamba2-7B prefill ({B} x {SERVE_PROMPT} tokens)")
+    gla_ms = sum(ours.get(k, 0.0) for k in GLA_KERNELS)
+    print(f"[profile] Zamba2-7B prefill: kernel #5 {gla_ms:.2f} ms of the "
+          f"device's {busy_ms:.1f} busy ms ({100 * gla_ms / busy_ms:.1f}%), "
+          f"{100 * gla_ms / wall_ms:.1f}% of the profiled wall "
+          f"{wall_ms:.1f} ms; the device busy "
+          f"{100 * busy_ms / wall_ms:.1f}% of it (serve's unprofiled "
+          f"prefills: {', '.join(f'{x:.1f}' for x in prefill_ms)} ms)",
+          flush=True)
 
 
 def profile_decode(model, B=SERVE_BATCH):
@@ -1423,7 +1487,8 @@ def main():
     # #4 and #5 on the serving path
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
     (records[3]["launches"], records[4]["launches"]), \
-        records[3]["launches_by_route"] = phase_serve()
+        records[3]["launches_by_route"], records[4]["launches_by_route"] = \
+        phase_serve()
     phase_cross_device()
     phase_cross_device(slice_path=True)
     phase_serve_golden()

@@ -1,15 +1,26 @@
 """Kernel #5, the chunked GLA scan, on Hopper: build, bind, launch.
 
-``csrc/gla_scan.cu`` replaces ``src/repro/kernels/linear_scan/kernel.py:71``
-(``gla_pallas``, body ``_gla_kernel``). It computes ``ref.gla_chunked``:
-the output and the final state, from an optional initial state (the TPU
-kernel returns no final state and takes no initial one). Built and loaded
-through ``kernels/nvcc.py`` at first use; nothing is compiled when this
-module is imported.
+Two CUDA C++ sources under ``csrc/`` replace
+``src/repro/kernels/linear_scan/kernel.py:71`` (``gla_pallas``, body
+``_gla_kernel``) and compute ``ref.gla_chunked``: the output and the final
+state, from an optional initial state (the TPU kernel returns no final state
+and takes no initial one). ``gla_cuda`` picks one by the call (``route``):
 
-``gla_cuda`` launches on ``torch.cuda.current_stream()`` and adds one to its
-``launches`` attribute per launch. ``gla_flops`` and ``gla_bytes`` count the
-work (the bound in ``chip_smoke.py`` and PERF.md comes from them).
+* bf16 q, k and v with a scalar decay (Mamba2), no bonus, not strict, K and
+  V in ``SSD_DIMS``: ``gla_ssd.cu``, 64-row tiles on the tensor cores
+  (``mma.sync``), the float32 operands split into two bf16 parts;
+* everything else (float32, RWKV6's per-channel decay and bonus, the strict
+  mode, other widths): ``gla_scan.cu``, the first port's kernel on the CUDA
+  cores. float32 stays there because a bf16 (or TF32) product of float32
+  operands would miss its 1e-4 limit; the per-channel decay's pairwise
+  exp(cum_q[t, k] - cum[s, k]) over (t, s, k) is no single matrix product.
+
+Each source is built and loaded through ``kernels/nvcc.py`` at first use;
+nothing is compiled when this module is imported. ``gla_cuda`` launches on
+``torch.cuda.current_stream()`` and adds one to its ``launches`` attribute
+per call, and one to ``routes[route]``. ``gla_flops`` and ``gla_bytes``
+count the reference's work (the bound in ``chip_smoke.py`` and PERF.md
+comes from them, whichever source runs).
 """
 from __future__ import annotations
 
@@ -20,25 +31,48 @@ import torch
 from repro_torch.kernels import nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "gla_scan.cu"
-MAX_DIM = 64          # largest K and V the kernel's shared memory holds
+SOURCES = {"gla_ssd": CSRC / "gla_ssd.cu", "gla_scan": CSRC / "gla_scan.cu"}
+MAX_DIM = 64          # largest K and V the kernels' shared memory holds
 MAX_TILE = 64         # rows of a tile; longer chunks are taken in tiles
+SSD_DIMS = (16, 32, 48, 64)   # the K and V the tensor-core route takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ENTRY = ("gla_scan_fwd", nvcc.P * 8 + nvcc.I * 6 + nvcc.I * 12
-          + nvcc.I * 3)
-_lib = {}
+_P, _I = nvcc.P, nvcc.I
+_ENTRY = {"gla_scan": ("gla_scan_fwd", _P * 8 + _I * 6 + _I * 12 + _I * 3),
+          "gla_ssd": ("gla_ssd_fwd", _P * 7 + _I * 5 + _I * 12)}
+_libs = {}
 
 
-def build(verbose: bool = False):
-    """Compile ``csrc/gla_scan.cu`` (``nvcc.build``); returns (library
-    path, seconds, nvcc output)."""
-    return nvcc.build(SOURCE, (), nvcc.FLAGS, verbose=verbose)
+def build(name: str = "gla_ssd", verbose: bool = False, defines=()):
+    """Compile ``SOURCES[name]`` with a ``-D`` flag for each of ``defines``
+    (``nvcc.build``); returns (library path, seconds, nvcc output)."""
+    flags = nvcc.FLAGS + tuple(f"-D{d}" for d in defines)
+    return nvcc.build(SOURCES[name], (), flags, verbose=verbose)
 
 
-def _load():
-    if "fn" not in _lib:
-        _lib["fn"] = nvcc.load(build()[0], *_ENTRY)
-    return _lib["fn"]
+def variant(name: str, defines):
+    """The entry point of ``SOURCES[name]`` built with ``defines`` (such
+    as ``("GLA_STAGES=2",)``). Put it in ``_libs[name]`` and the wrapper
+    launches it; the shipped build is the one without."""
+    return nvcc.load(build(name, defines=defines)[0], *_ENTRY[name])
+
+
+def _load(name: str):
+    """The C entry point of source ``name``, built and loaded at first
+    use."""
+    if name not in _libs:
+        _libs[name] = variant(name, ())
+    return _libs[name]
+
+
+def route(dtype: torch.dtype, K: int, V: int, *, vec: bool = False,
+          bonus: bool = False, strict: bool = False) -> str:
+    """The source that computes a call: ``gla_ssd`` for bf16 with a scalar
+    decay, no bonus, not strict and K, V in ``SSD_DIMS``; else
+    ``gla_scan``."""
+    if (dtype == torch.bfloat16 and not (vec or bonus or strict)
+            and K in SSD_DIMS and V in SSD_DIMS):
+        return "gla_ssd"
+    return "gla_scan"
 
 
 def tile_rows(chunk: int) -> int:
@@ -48,12 +82,12 @@ def tile_rows(chunk: int) -> int:
 
 def gla_cuda(q, k, v, log_decay, *, bonus=None, strict: bool = False,
              chunk: int = 64, initial_state=None):
-    """Launch the scan. q, k: (B, S, H, K); v: (B, S, H, V), all float32 or
-    all bfloat16, read through their strides (unit stride over the last
-    dim; q and k may be broadcast over H with stride 0); log_decay float32
-    (B, S, H) or (B, S, H, K); bonus (H, K) and initial_state (B, H, K, V)
-    float32 or None; K, V <= 64. Returns (o (B, S, H, V) in q's type,
-    final_state (B, H, K, V) float32)."""
+    """Launch the scan on this call's route (``route``). q, k: (B, S, H, K);
+    v: (B, S, H, V), all float32 or all bfloat16, read through their
+    strides (unit stride over the last dim; q and k may be broadcast over H
+    with stride 0); log_decay float32 (B, S, H) or (B, S, H, K); bonus (H,
+    K) and initial_state (B, H, K, V) float32 or None; K, V <= 64. Returns
+    (o (B, S, H, V) in q's type, final_state (B, H, K, V) float32)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor) or not x.is_cuda:
             raise ValueError(f"{name}: the kernel takes CUDA tensors")
@@ -97,22 +131,32 @@ def gla_cuda(q, k, v, log_decay, *, bonus=None, strict: bool = False,
     hT = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
     if B * H == 0:
         return o, hT
-    nvcc.launch(_load(), q.device, (
-        q, k, v, log_decay, bonus, initial_state, o, hT, _DTYPES[q.dtype],
-        B, S, H, K, V, *sq, *sk, *sv, *sl, int(vec), int(bool(strict)),
-        tile_rows(chunk)), "gla_scan")
+    name = route(q.dtype, K, V, vec=vec, bonus=bonus is not None,
+                 strict=strict)
+    fn = _load(name)
+    if name == "gla_ssd":
+        nvcc.launch(fn, q.device, (
+            q, k, v, log_decay, initial_state, o, hT, B, S, H, K, V,
+            *sq, *sk, *sv, *sl), name)
+    else:
+        nvcc.launch(fn, q.device, (
+            q, k, v, log_decay, bonus, initial_state, o, hT,
+            _DTYPES[q.dtype], B, S, H, K, V, *sq, *sk, *sv, *sl, int(vec),
+            int(bool(strict)), tile_rows(chunk)), name)
     gla_cuda.launches += 1
+    gla_cuda.routes[name] += 1
     return o, hT
 
 
 gla_cuda.launches = 0
+gla_cuda.routes = dict.fromkeys(SOURCES, 0)   # calls by route
 
 
 def gla_flops(B, S, H, K, V, *, vec=False, bonus=False, strict=False,
               chunk=64) -> int:
-    """Multiply-add operations of the scan as ``csrc/gla_scan.cu`` does
-    them, two each (the pairs of a tile counted over its valid rows, the
-    state update over the whole tile): per row the inter-tile term 2 K V
+    """Multiply-add operations of the reference's work, two each (the
+    pairs of a tile counted over its valid rows, the state update over the
+    whole tile): per row the inter-tile term 2 K V
     and the bonus 2 K + 2 V; per attended (t, s) pair the score 2 K (3 K
     with per-channel decay) and the intra-tile term 2 V; per tile the
     state update 2 T K V. Exponentials are not counted."""

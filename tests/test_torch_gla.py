@@ -3,13 +3,18 @@ package: ``gla_chunked``, ``gla_naive`` and ``gla_step``, and its Pallas
 kernel in interpret mode, over the cases of ``tests/test_kernels_gla.py``
 (scalar, per-channel and RWKV6 bonus + strict decay, a ragged length,
 several chunk sizes), output and final state, plus an initial state. The
-CUDA kernel itself is held against the plain version on the card by
-``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``.
+CUDA kernels themselves are held against the plain version on the card by
+``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``; here, which of
+them ``kernel.route`` picks for ``chip_smoke.py``'s cases, and the work
+counts behind the bound.
 
 Tolerance: 1e-5 of the largest value (output, or state), in float32:
 both sides run the same float32 arithmetic, summed in another order.
 Inputs come from numpy with a seed.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,3 +170,48 @@ def test_work_counts():
     strict = kernel.gla_flops(B, S, H, K, V, chunk=256, strict=True)
     # tiles of 64 and 36 rows: the diagonal is 100 pairs of 2 K + 2 V
     assert incl - strict == B * H * 100 * (2 * K + 2 * V)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_route_of_each_chip_smoke_case():
+    """Mamba2's bf16 scans take the tensor-core source; float32 and RWKV6's
+    per-channel decay, bonus and strict mode stay on the CUDA-core one."""
+    want = {"zamba2 mamba2 prefill": "gla_ssd", "zamba2 ragged": "gla_ssd",
+            "zamba2 from a state": "gla_ssd",
+            "zamba2 one token from a state": "gla_ssd",
+            "zamba2 float32": "gla_scan", "rwkv6 vector decay": "gla_scan",
+            "rwkv6 bonus + strict": "gla_scan"}
+    got = {label: kernel.route(dt, K, V, vec=mode != "scalar",
+                               bonus=mode == "rwkv", strict=mode == "rwkv")
+           for label, B, S, H, K, V, dt, mode, chunk, init
+           in _chip_smoke().gla_cases()}
+    assert got == want
+    assert kernel.route(torch.bfloat16, 64, 64) == "gla_ssd"
+    for K, V in ((8, 64), (64, 40), (72, 64)):
+        assert kernel.route(torch.bfloat16, K, V) == "gla_scan"
+    assert set(kernel.gla_cuda.routes) == set(kernel.SOURCES)
+
+
+def test_work_counts_at_zamba2_prefill_unchanged():
+    """The bound measures the reference's work, whichever source runs:
+    Zamba2-7B's Mamba2 prefill (4 x 1,024 tokens, 112 heads of 64, state
+    64, chunk 256, B and C broadcast over the heads) needs 11,333,009,408
+    operations and 127,664,128 bytes, 0.0381 ms at 3.35 TB/s."""
+    B, S, H, K, V = 4, 1024, 112, 64, 64
+    assert kernel.gla_flops(B, S, H, K, V, chunk=256) == 11_333_009_408
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q = meta(B, S, 1, K).expand(B, S, H, K)
+    nbytes = kernel.gla_bytes(q, q, meta(B, S, H, V),
+                              meta(B, S, H, dtype=torch.float32))
+    assert nbytes == 127_664_128
+    assert round(1e3 * nbytes / 3.35e12, 4) == 0.0381

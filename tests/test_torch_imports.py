@@ -70,23 +70,22 @@ def test_serving_slice_modules_are_scanned():
     ("flash_attention", "flash_attention.cu"),
     ("flash_attention", "flash_prefill.cu"),
     ("flash_attention", "flash_decode.cu"),
-    ("linear_scan", "gla_scan.cu")))
+    ("linear_scan", "gla_scan.cu"),
+    ("linear_scan", "gla_ssd.cu")))
 def test_slice_kernel_sources_are_in_the_package(module, source):
-    """Kernels #4 (three sources, one a route) and #5 are built from
+    """Kernels #4 (three sources, a route each) and #5 (two) are built from
     sources of the package, each with its plain C entry point."""
     import importlib
     kernel = importlib.import_module(f"repro_torch.kernels.{module}.kernel")
-    sources = list(kernel.SOURCES.values()) if hasattr(kernel, "SOURCES") \
-        else [kernel.SOURCE]
+    sources = list(kernel.SOURCES.values())
     assert source in {p.name for p in sources}
     assert all(p.is_file() and p.parent == kernel.CSRC for p in sources)
     assert all(h.is_file() for h in getattr(kernel, "HEADERS", ()))
     assert kernel.CSRC == ROOT / "src" / "repro_torch" / "kernels" / \
         module / "csrc"
     for src in sources:
-        entry = kernel._ENTRY[src.stem] if isinstance(kernel._ENTRY, dict) \
-            else kernel._ENTRY
-        assert f'extern "C" int {entry[0]}(' in src.read_text()
+        assert f'extern "C" int {kernel._ENTRY[src.stem][0]}(' in \
+            src.read_text()
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -20,7 +20,9 @@ float32 split partials 2e-5 of max(1, max|plain|) against
 ``ref.attention_partials``. The GLA scan (#5):
 1e-4 of max|o| on the output and of max|state| on the final state against
 ``ref.gla_chunked`` (the kernel walks a chunk in tiles of up to 64 rows and
-sums in another order).
+sums in another order); its tensor-core route (``csrc/gla_ssd.cu``) in bf16
+to ``chip_smoke.py``'s limit, 1e-4 of max|o| plus one bf16 unit in the last
+place of the plain value (both sides round a float32 sum to bf16).
 """
 import dataclasses
 
@@ -462,3 +464,80 @@ def test_gla_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     y = torch.zeros(1, 8, 2, 16, device=cuda_device)
     with pytest.raises(ValueError, match="log_decay"):
         gla_kernel.gla_cuda(y, y, y, ld.double())
+
+
+# the tensor-core route, csrc/gla_ssd.cu: bf16, scalar decay
+GLA_SSD_CASES = [
+    # B, S, H, K, V, q and k broadcast over H, initial state, decay scale
+    (2, 1, 3, 64, 64, True, True, 0.7),
+    (2, 15, 3, 64, 64, True, False, 0.7),
+    (2, 17, 3, 64, 64, False, True, 0.7),
+    (1, 64, 4, 64, 64, True, True, 0.7),
+    (2, 65, 3, 32, 32, False, False, 0.7),
+    (2, 1000, 3, 64, 64, True, True, 0.7),
+    (1, 300, 2, 16, 16, True, True, 0.7),
+    (1, 300, 2, 16, 64, False, True, 0.7),
+    (1, 300, 2, 64, 16, True, False, 0.7),
+    (1, 130, 5, 32, 64, True, True, 0.7),
+    (1, 130, 5, 48, 48, False, True, 0.7),
+    (2, 200, 3, 64, 64, True, True, 30.0),    # log_decay <= -30 a step
+]
+
+
+def _ssd_inputs(case, device):
+    B, S, H, K, V, bcast, init, scale = case
+    g = torch.Generator().manual_seed(S * H + K + V)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g)
+
+    if bcast:   # Mamba2's B and C: stride 0 over the heads
+        q, k = (n(B, S, 1, K).expand(B, S, H, K) for _ in range(2))
+    else:
+        q, k = n(B, S, H, K), n(B, S, H, K)
+    v = n(B, S, H, V)
+    ld = -scale * n(B, S, H).abs() if scale < 1 else \
+        -(scale + n(B, S, H).abs())
+    h0 = n(B, H, K, V) if init else None
+    bf = dict(device=device, dtype=torch.bfloat16)
+    return (q.to(**bf), k.to(**bf), v.to(**bf), ld.to(device),
+            None if h0 is None else h0.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLA_SSD_CASES)
+def test_gla_tensor_core_route_matches_plain_on_card(cuda_device, case):
+    q, k, v, ld, h0 = _ssd_inputs(case, cuda_device)
+    K, V = q.shape[-1], v.shape[-1]
+    assert gla_kernel.route(q.dtype, K, V) == "gla_ssd"
+    before = dict(gla_kernel.gla_cuda.routes)
+    o, hT = gla_ops.gla(q, k, v, ld, chunk=256, initial_state=h0)
+    assert gla_kernel.gla_cuda.routes["gla_ssd"] == before["gla_ssd"] + 1
+    assert gla_kernel.gla_cuda.routes["gla_scan"] == before["gla_scan"]
+    wo, whT = gla_ref.gla_chunked(q, k, v, ld, chunk=256, initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(hT).all()
+    err = (o.float() - wo.float()).abs()
+    limit = 1e-4 * wo.float().abs().max() + 2.0 ** -7 * wo.float().abs()
+    assert (err <= limit).all(), err.max().item()
+    assert (hT - whT).abs().max().item() <= 1e-4 * whT.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gla_cuda_tensors_never_take_the_plain_scan(cuda_device,
+                                                    monkeypatch):
+    """Both routes launch a kernel for CUDA tensors; the plain scan is not
+    a fallback."""
+    def plain(*args, **kw):
+        raise AssertionError("a CUDA tensor reached ref.gla_chunked")
+
+    monkeypatch.setattr(gla_ops._ref, "gla_chunked", plain)
+    q, k, v, ld, h0 = _ssd_inputs((1, 70, 2, 64, 64, True, True, 0.7),
+                                  cuda_device)
+    before = dict(gla_kernel.gla_cuda.routes)
+    gla_ops.gla(q, k, v, ld, chunk=256, initial_state=h0)
+    gla_ops.gla(q.float(), k.float(), v.float(), ld, chunk=256,
+                initial_state=h0)
+    torch.cuda.synchronize()
+    assert {r: gla_kernel.gla_cuda.routes[r] - before[r]
+            for r in before} == {"gla_ssd": 1, "gla_scan": 1}
