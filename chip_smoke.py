@@ -13,7 +13,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    started together, with ``-Xptxas -v``: registers and spills);
 3. kernels against their plain versions on the card, at three row counts
    each (ragged, the path's, fleet scale): the PGD epoch (#1) and the CVaR
-   ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3).
+   ensemble epoch (#2, K = 8 and 32) at iters = 80, one joint step (#3,
+   its split route's step alone); then #3 with the shift update against
+   ``ref.joint_step_s_arrays`` at the slice path's 28 x 512 on its fused
+   route (one launch, a thread-block cluster a rollout; the blocks of a
+   cluster must agree on nu bit for bit) and its split route (two
+   launches; d' bitwise the fused route's), and at 4 x 3,000 clusters,
+   where the wrapper takes the split route, with the residuals and box
+   violations of d' and s'; and the split route's ``s_project`` alone.
    Max error, conservation residual, bound violations, kernel and plain
    times (CUDA events, median of 20 after warm-up; fewer for the slowest
    plain runs), the least time the card could take for the same work and
@@ -38,12 +45,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 5. slice path, the risk-aware joint day: ``SimConfig(joint_spatial=True,
    n_members=8)`` over ``mobility_sweep_library(7) + risk_sweep_library(7)``
    x seeds 0-3 (28 rollouts) for 7 days at the same fleet size, with exact
-   launch counts of all three kernels, the same daily checks at the
-   shifted budgets, the rollout-days on which the joint solve kept its
-   joint point, the scenario table and the sweep rows (the mobility
-   rows against the same batch under ``joint_spatial=False``, counted
-   apart), the joint step's time split from the s projection's, and one
-   profiled day;
+   launch counts of all three kernels (every joint step one launch on
+   #3's fused route; no ``s_project`` launch and no eager projection on
+   the card), the same daily checks at the shifted budgets, the
+   rollout-days on which the joint solve kept its joint point, the
+   scenario table and the sweep rows (the mobility rows against the same
+   batch under ``joint_spatial=False``, counted apart), a joint step's
+   host time on the fused and the split route and, off the path, the
+   eager projection's, and one profiled day with its launch count;
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
    then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
@@ -71,6 +80,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -82,6 +92,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 BF16_TENSOR_PER_S = 989e12           # H100 SXM dense bf16 tensor rate
 KERNEL_TOL = 1e-4                    # max |kernel - plain| on delta
 JOINT_TOL = 1e-5                     # one joint step: d', and x max|g_s|
+SHIFT_TOL = 1e-5                     # s': x max|z|, plus the bracket width
 IDENTICAL_TOL = 1e-6                 # #2 over identical members vs #1
 ITERS = 80
 # the main path: default_library's 11 scenarios x 4 seeds x 512 clusters
@@ -92,8 +103,11 @@ MAIN_ROWS = 11 * len(MAIN_SEEDS) * MAIN_CLUSTERS
 KERNEL_ROWS = (1000, MAIN_ROWS, 131072)  # ragged, main path, fleet scale
 # the slice path: 4 mobility + 3 risk scenarios x 4 seeds x 512 clusters
 SLICE_MEMBERS = 8
-SLICE_ROWS = 7 * len(MAIN_SEEDS) * MAIN_CLUSTERS
+SLICE_ROLLOUTS = 7 * len(MAIN_SEEDS)
+SLICE_ROWS = SLICE_ROLLOUTS * MAIN_CLUSTERS
 SLICE_KERNEL_ROWS = (1000, SLICE_ROWS, 131072)
+# (rollouts, clusters) past one thread-block cluster's rows: #3's split route
+SPLIT_SHAPE = (4, 3000)
 
 
 def smi(query: str) -> str:
@@ -441,10 +455,14 @@ def joint_box(args, drop):
 
 
 def phase_joint_kernel(card, drop=0.8):
+    """Kernel #3: the split route's step alone (d', g_s) against
+    ``ref.joint_step_arrays`` at three row counts; then the step with the
+    shift update (``phase_joint_s``). Returns the records of #3 and of the
+    split route's shift update."""
     from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     from repro_torch.kernels.vcc_pgd import ref as pgd_ref
     dev = torch.device("cuda")
-    record = None
+    split_ms = None
     for rows in SLICE_KERNEL_ROWS:
         args = random_joint(rows, rows, dev)
 
@@ -463,9 +481,10 @@ def phase_joint_kernel(card, drop=0.8):
         resid, viol = conservation(d, lo, ub)
         ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain)
         host_ms = cuda_ms(kern)
-        bound_ms, by = report(
-            "vcc_joint_step", rows, err, JOINT_TOL, resid, viol, ms,
-            plain_ms, card, pgd_kernel.joint_step_flops(rows, 24),
+        report(
+            "vcc_joint_step (split route's step)", rows, err, JOINT_TOL,
+            resid, viol, ms, plain_ms, card,
+            pgd_kernel.joint_step_flops(rows, 24),
             pgd_kernel.joint_step_bytes(rows, 24),
             pgd_kernel.joint_step_shuffles(rows),
             extra=f" (g_s: max|kernel-plain|={g_err:.3e} of max|g_s| "
@@ -477,14 +496,214 @@ def phase_joint_kernel(card, drop=0.8):
                                  f"rows={rows}")
         feasible_or_raise("vcc_joint_step", rows, d, lo, ub, resid, viol)
         if rows == SLICE_ROWS:
-            record = {"name": "vcc_joint_step", "route": "cuda",
-                      "source": "src/repro_torch/kernels/vcc_pgd/csrc/"
-                                "joint_step.cu",
-                      "replaces": "src/repro/kernels/vcc_pgd/kernel.py:207",
-                      "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": by, "library_ms": None}
-    return record
+            split_ms = (ms, plain_ms)
+    records = phase_joint_s(card, drop)
+    records[0]["split_step_ms"], records[0]["split_step_plain_ms"] = split_ms
+    return records
+
+
+def random_joint_s(B, n, seed, device):
+    """``random_joint``'s rows as B rollouts of n clusters, with the shift
+    bounds at a mobility per rollout (the second at 0: lo_s = ub_s = 0)
+    and lr_s per rollout: the operands of ``joint_step_s_cuda``."""
+    g = torch.Generator().manual_seed(seed + 1)
+    args = random_joint(B * n, seed, "cpu")
+    tau = args[5]
+    mob = 0.1 + 0.5 * torch.rand(B, 1, generator=g)
+    mob[1] = 0.0
+    mob = mob.repeat_interleave(n, 0)
+    lr_s = 0.002 + 0.004 * torch.rand(B, 1, generator=g)
+    return [x.to(device).contiguous()
+            for x in (*args, -mob * tau, mob * tau, lr_s)]
+
+
+def shift_check(label, B, n, s2, ws, z, width, lo_s, ub_s):
+    """s' (B, n) against the plain version's ws (B, n): max error within
+    SHIFT_TOL x max|z| plus the final bracket's width, inside its box, and
+    conserving as closely as the plain version (both residuals are the
+    rounding of sums over n clusters: twice the plain one plus n ulp of
+    max|z|). Returns (error, limit, residual, plain residual, violation)."""
+    z_scale = z.abs().max().item()
+    err = (s2 - ws).abs().max().item()
+    limit = SHIFT_TOL * z_scale + width
+    resid = s2.sum(-1).abs().max().item()
+    plain_resid = ws.sum(-1).abs().max().item()
+    viol = torch.clamp(torch.maximum(lo_s - s2, s2 - ub_s), min=0.0
+                       ).max().item()
+    if not (err <= limit and viol == 0.0
+            and resid <= 2 * plain_resid + n * 2 ** -24 * z_scale):
+        raise AssertionError(f"{label}: s' error {err:.3e} (limit "
+                             f"{limit:.3e}), residual {resid:.3e} (plain "
+                             f"{plain_resid:.3e}), box violation {viol:.3e}")
+    return err, limit, resid, plain_resid, viol
+
+
+def phase_joint_s(card, drop=0.8):
+    """Kernel #3 with the shift update against ``ref.joint_step_s_arrays``:
+    at the slice path's 28 x 512 on the fused route (what the wrapper
+    picks) and on the split route (the step's kernel, then ``s_project``),
+    and at 4 x 3,000 clusters, past one cluster's rows, where the wrapper
+    takes the split route. Each line: d' and s' against the plain version,
+    the residuals and box violations of both, device ms against the bound
+    and the plain version; the C blocks of each rollout's cluster must
+    agree on nu bit for bit, and the routes on d'. Then ``s_project`` alone
+    against ``ref.project_row``."""
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    dev = torch.device("cuda")
+    record, ms_by_route = None, {}
+    for B, n in ((SLICE_ROLLOUTS, MAIN_CLUSTERS), SPLIT_SHAPE):
+        kern = random_joint_s(B, n, B * n, dev)
+        rows = B * n
+        pl = [x.reshape(B, n, x.shape[-1]) for x in kern[:-1]] + [kern[-1]]
+        route, C, R = pgd_kernel.joint_plan(n)
+        nu = {"wrapper": torch.empty(B * max(C, 1), 2, device=dev),
+              "split": torch.empty(B, 2, device=dev)}
+
+        def wrapper():
+            return pgd_kernel.joint_step_s_cuda(*kern, n=n, drop_limit=drop,
+                                                nu_out=nu["wrapper"])
+
+        def split():
+            d, g = pgd_kernel.joint_step_cuda(*kern[:15], drop_limit=drop)
+            return d, pgd_kernel.s_project_cuda(
+                kern[1], g, kern[17], kern[15], kern[16], n=n,
+                nu_out=nu["split"])
+
+        def plain():
+            return pgd_ref.joint_step_s_arrays(*pl, drop_limit=drop)
+
+        wd, ws = plain()
+        _, wg = pgd_ref.joint_step_arrays(*pl[:15], drop_limit=drop)
+        z = pl[1][..., 0] - pl[-1] * wg[..., 0]
+        lo, ub = joint_box(kern, drop)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        runs = {route: wrapper} if route == "split" else \
+            {"fused": wrapper, "split": split}
+        outs = {}
+        for name, fn in runs.items():
+            d, s2 = fn()
+            torch.cuda.synchronize()
+            outs[name] = (d, s2)
+            nus = nu["split" if fn is split else "wrapper"]
+            width = nus[:, 1].max().item()
+            err = (d - wd.reshape(rows, -1)).abs().max().item()
+            if not err <= JOINT_TOL:
+                raise AssertionError(f"joint step ({name}) disagrees with "
+                                     f"plain at {B} x {n}: {err:.3e}")
+            resid, viol = conservation(d, lo, ub)
+            feasible_or_raise(f"vcc_joint_step ({name})", rows, d, lo, ub,
+                              resid, viol)
+            s_err, s_lim, s_res, s_pres, s_viol = shift_check(
+                f"vcc_joint_step ({name}) at {B} x {n}", B, n,
+                s2.reshape(B, n), ws[..., 0], z, width, pl[15][..., 0],
+                pl[16][..., 0])
+            agree = ""
+            if name == "fused":
+                bits = nus[:, 0].view(torch.int32).reshape(B, C)
+                if not torch.equal(bits, bits[:, :1].expand(B, C)):
+                    raise AssertionError("the blocks of a cluster found "
+                                         "different nu")
+                agree = (f"; the {C} blocks of each rollout's cluster agree "
+                         "on nu bit for bit")
+            ms = cuda_ms(fn, lead=True)
+            shuffles = pgd_kernel.joint_step_s_shuffles(B, n) \
+                if fn is wrapper else pgd_kernel.joint_step_shuffles(rows) \
+                + pgd_kernel.shift_shuffles(B)
+            plan = f"{C} blocks of {R} rows a rollout, one launch" \
+                if name == "fused" else "the step's kernel, then s_project"
+            flops = pgd_kernel.joint_step_s_flops(B, n, 24)
+            nbytes = pgd_kernel.joint_step_s_bytes(B, n, 24)
+            bound_ms = card.bound(flops, nbytes)[0]
+            _, by = report(
+                f"vcc_joint_step with the shift update, {name} route", rows,
+                err, JOINT_TOL, resid, viol, ms, plain_ms, card, flops,
+                nbytes, shuffles,
+                extra=f" ({B} x {n}; {plan}; s': max|kernel-plain|="
+                      f"{s_err:.3e} (limit {s_lim:.3e}, bracket width "
+                      f"{width:.3e}), conservation max|sum_c s'|={s_res:.3e}"
+                      f" (plain {s_pres:.3e}), box violation {s_viol:.3e}"
+                      f"{agree}; bound share {100 * bound_ms / ms:.1f}%)")
+            if n == MAIN_CLUSTERS:
+                ms_by_route[name] = ms
+                if name == "fused":
+                    record = {"name": "vcc_joint_step", "route": "cuda",
+                              "source": "src/repro_torch/kernels/vcc_pgd/"
+                                        "csrc/joint_step.cu",
+                              "replaces": "src/repro/kernels/vcc_pgd/"
+                                          "kernel.py:207",
+                              "max_abs_err": err, "s_max_abs_err": s_err,
+                              "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": by,
+                              "library_ms": None}
+        if len(outs) == 2:
+            (df, sf), (ds, ss) = outs["fused"], outs["split"]
+            same_d = torch.equal(df.view(torch.int32), ds.view(torch.int32))
+            gap = (sf - ss).abs().max().item()
+            width = max(nu["wrapper"][:, 1].max().item(),
+                        nu["split"][:, 1].max().item())
+            print(f"[kernel] vcc_joint_step fused vs split route at {B} x "
+                  f"{n}: d' bitwise equal: {same_d}; s' max gap {gap:.3e} "
+                  f"(bracket width {width:.3e}; bitwise: {gap == 0.0})",
+                  flush=True)
+            if not (same_d and gap <= width):
+                raise AssertionError("the fused and split routes disagree")
+        del kern, pl, outs, wd, ws
+    record["ms_by_route"] = ms_by_route
+    return [record, phase_s_project(card)]
+
+
+def phase_s_project(card):
+    """The split route's shift update alone at the slice path's 28 x 512,
+    against ``ref.project_row`` of z = s - lr_s g_s."""
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    dev = torch.device("cuda")
+    B, n = SLICE_ROLLOUTS, MAIN_CLUSTERS
+    g = torch.Generator().manual_seed(23)
+    tau = 1.0 + 4.0 * torch.rand(B, n, generator=g)
+    mob = 0.1 + 0.5 * torch.rand(B, 1, generator=g)
+    mob[1] = 0.0
+    s = tau * mob * (2 * torch.rand(B, n, generator=g) - 1)
+    g_s = 100 * torch.rand(B, n, generator=g)
+    lr_s = 0.002 + 0.004 * torch.rand(B, 1, generator=g)
+    s, g_s, lo_s, ub_s, lr_s = (x.to(dev).contiguous() for x in (
+        s, g_s, -mob * tau, mob * tau, lr_s))
+    nu = torch.empty(B, 2, device=dev)
+
+    def kern():
+        return pgd_kernel.s_project_cuda(
+            *(x.reshape(-1, 1) for x in (s, g_s)), lr_s,
+            *(x.reshape(-1, 1) for x in (lo_s, ub_s)), n=n, nu_out=nu)
+
+    def plain():
+        return pgd_ref.project_row(s - lr_s * g_s, lo_s, ub_s)
+
+    got, want = kern().reshape(B, n), plain()
+    torch.cuda.synchronize()
+    err, limit, resid, plain_resid, viol = shift_check(
+        "s_project", B, n, got, want, s - lr_s * g_s,
+        nu[:, 1].max().item(), lo_s, ub_s)
+    ms = cuda_ms(kern, lead=True)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    bound_ms, by = card.bound(pgd_kernel.shift_flops(B, n),
+                              pgd_kernel.shift_bytes(B, n))[:2]
+    print(f"[kernel] s_project {B} x {n}: max|kernel-plain|={err:.3e} "
+          f"(limit {limit:.3e}), conservation max|sum_c s'|={resid:.3e} "
+          f"(plain {plain_resid:.3e}), box violation {viol:.3e}; kernel "
+          f"{ms:.4f} ms (device), plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {by}; the design's "
+          f"shuffle-issue floor "
+          f"{1e3 * pgd_kernel.shift_shuffles(B) / card.shfl_per_s:.4f} ms",
+          flush=True)
+    return {"name": "vcc_s_project", "route": "cuda",
+            "source": "src/repro_torch/kernels/vcc_pgd/csrc/joint_step.cu",
+            "replaces": "src/repro/kernels/vcc_pgd/kernel.py:207",
+            "part_of": "vcc_joint_step: its split route's shift update (the "
+                       "reference runs it after joint_step_pallas, "
+                       "src/repro/core/solver.py:165-167)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
 
 # ------------------------------------------------- phase 3: kernels #4, #5
@@ -905,8 +1124,11 @@ def kernel_counters():
 def reset_counts():
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     for k in kernel_counters():
         k.launches = 0
+    pgd_kernel.s_project_cuda.launches = 0
+    pgd_kernel.joint_step_cuda.routes = {"fused": 0, "split": 0}
     fa_kernel.flash_attention_cuda.routes = dict.fromkeys(
         fa_kernel.SOURCES, 0)
     gla_kernel.gla_cuda.routes = dict.fromkeys(gla_kernel.SOURCES, 0)
@@ -918,7 +1140,7 @@ def read_counts():
 
 
 OURS = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel",
-        "flash_attention_kernel", "flash_prefill_bf16_kernel",
+        "joint_step_s_kernel", "s_project_kernel", "flash_attention_kernel", "flash_prefill_bf16_kernel",
         "flash_decode_split_kernel", "flash_decode_combine_kernel",
         "gla_scan_kernel", "gla_ssd_kernel")
 
@@ -973,7 +1195,7 @@ def profile_call(fn, fname, what):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / fname).write_text(events.table(sort_by=sort_key, row_limit=40))
-    return wall_ms, busy_ms, ours
+    return wall_ms, busy_ms, ours, sum(e.count for e in kernels)
 
 
 def profile_day(cfg, params, state, fname, days=MAIN_DAYS):
@@ -1025,8 +1247,11 @@ def kept_days(bests, names, S):
 
 
 def phase_slice_path():
-    """The risk-aware joint day at full width, on the card."""
+    """The risk-aware joint day at full width, on the card. Fails if a
+    joint step took any route but the fused one, or an eager projection
+    ran on the card."""
     from repro_torch import sim
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     cfg = slice_config()
     scenarios = slice_scenarios(MAIN_DAYS)
     names = [s.name for s in scenarios]
@@ -1063,10 +1288,13 @@ def phase_slice_path():
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, ledger, traj = run(params)
-        torch.cuda.synchronize()
+        with eager_projections() as eager:
+            state, ledger, traj = run(params)
+            torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = read_counts()
+        routes = dict(pgd_kernel.joint_step_cuda.routes)
+        s_proj = pgd_kernel.s_project_cuda.launches
         burn_s, roll_s = marks[-1] - t0, t1 - marks[-1]
         B = len(scenarios) * S
         worst = tuple(max(ch[i] for ch in checks) for i in range(2))
@@ -1077,21 +1305,28 @@ def phase_slice_path():
               f"{c.n_clusters} clusters); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"launches of #1 / #2 / #3: {counts[0]} / {counts[1]} / "
-              f"{counts[2]}; worst daily conservation residual "
+              f"{counts[2]} (#3 by route {routes}; s_project "
+              f"{s_proj}; eager project_row calls on the card "
+              f"{eager['calls']}); worst daily conservation residual "
               f"{worst[0]:.3e}, bound violation {worst[1]:.3e}", flush=True)
+        if eager["calls"]:
+            raise AssertionError(f"{label}: {eager['calls']} eager "
+                                 "projections ran on the card")
         for name, val in list(ledger._asdict().items()) + list(traj.items()):
             if not torch.isfinite(val).all():
                 raise AssertionError(f"{label}: non-finite values in {name}")
-        return state, ledger, counts, backlog["queue"], roll_s, last["out"], \
-            bests
+        return state, ledger, counts + [routes, s_proj], backlog["queue"], \
+            roll_s, last["out"], bests
 
     state, led_joint, counts, backlog, roll_s, last, bests = drive(
         cfg, "joint")
-    want = [MAIN_DAYS * SOLVE_ROUNDS, MAIN_DAYS * SOLVE_ROUNDS,
-            MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS, 0, 0]
+    steps = MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS
+    want = [MAIN_DAYS * SOLVE_ROUNDS, MAIN_DAYS * SOLVE_ROUNDS, steps, 0, 0,
+            {"fused": steps, "split": 0}, 0]
     if counts != want:
         raise AssertionError(f"the slice path launched kernels #1 to #5 "
-                             f"{counts} times, expected {want}")
+                             f"(#3 by route, then s_project) {counts} times, "
+                             f"expected {want}")
     # printed, not held: the golden-size slice below holds the verdicts
     # (non-zero and equal on both devices)
     kept_days(bests, names, S)
@@ -1100,7 +1335,8 @@ def phase_slice_path():
         initial_backlog=backlog)), flush=True)
     _, led_seq, seq_counts, _, _, _, _ = drive(
         slice_config(joint_spatial=False), "sequential (same batch)")
-    if seq_counts != [0, MAIN_DAYS * SOLVE_ROUNDS, 0, 0, 0]:
+    if seq_counts != [0, MAIN_DAYS * SOLVE_ROUNDS, 0, 0, 0,
+                      {"fused": 0, "split": 0}, 0]:
         raise AssertionError(f"the sequential run launched {seq_counts}")
 
     def sub(led, sl):
@@ -1113,25 +1349,32 @@ def phase_slice_path():
     print(sim.format_table(sim.risk_sweep_rows(
         {cfg.n_members: sub(led_joint, slice(n_mob * S, None))},
         names[n_mob:], S), sim.RISK_COLUMNS), flush=True)
-    split = joint_step_split(last.prob, last.sol, params)
-    wall_ms, busy_ms, _ = profile_day(cfg, params, state,
-                                      "profile_slice_day.txt")
-    print(f"[slice] the s projection: {split['proj_ms']:.3f} ms a step x "
-          f"{JOINT_ROUNDS * JOINT_STEPS} steps = "
-          f"{split['proj_ms'] * JOINT_ROUNDS * JOINT_STEPS:.1f} ms a day, "
-          f"{100 * split['proj_ms'] * JOINT_ROUNDS * JOINT_STEPS / (1e3 * roll_s / MAIN_DAYS):.1f}% "
-          f"of the unprofiled day", flush=True)
+    times = joint_step_times(last.prob, last.sol, params)
+    wall_ms, busy_ms, _, launches = profile_day(cfg, params, state,
+                                                "profile_slice_day.txt")
+    day_ms = 1e3 * roll_s / MAIN_DAYS
+    print(f"[slice] a day's {JOINT_ROUNDS * JOINT_STEPS} joint steps: "
+          f"{times['fused_ms'] * JOINT_ROUNDS * JOINT_STEPS:.1f} ms on the "
+          f"fused route, {100 * times['fused_ms'] * JOINT_ROUNDS * JOINT_STEPS / day_ms:.1f}% "
+          f"of the unprofiled day ({day_ms:.1f} ms); the eager projection "
+          f"off the path would take "
+          f"{times['eager_ms'] * JOINT_ROUNDS * JOINT_STEPS:.1f} ms a day; "
+          f"the profiled day made {launches} launches", flush=True)
     return counts, roll_s
 
 
-def joint_step_split(prob, sol, params, reps: int = 3):
-    """Host-clock time of the joint refinement's two parts at the slice's
-    shapes, each ended by a synchronize: the fused joint step (kernel #3
-    and the dispatcher's operand layout) and the fleet-coupled projection
-    of s in PyTorch, JOINT_STEPS steps each, best of ``reps``."""
+def joint_step_times(prob, sol, params, reps: int = 3):
+    """Host-clock time of a joint step at the slice's shapes, JOINT_STEPS
+    steps ended by a synchronize, best of ``reps``: the path's fused route
+    (``ops.joint_stepper``: one wrapper call and one launch a step), the
+    split route's two launches (the step's kernel and ``s_project`` on the
+    same laid-out operands), and, off the path, the eager projection of s
+    in PyTorch (``solver.project_conservation``) that the fused route
+    replaced."""
     import dataclasses
 
     from repro_torch.core import solver, spatial
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
     from repro_torch.kernels.vcc_pgd import ops
     p = dataclasses.replace(prob, eta_ens=None, pow_nom_ens=None,
                             risk_beta=None)
@@ -1139,7 +1382,10 @@ def joint_step_split(prob, sol, params, reps: int = 3):
     s = torch.zeros_like(p.tau)
     lr_d = solver.scaled_lr(0.5, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
     temp = solver.peak_temperature(p.pow_nom, 0.02)
+    lr_s = torch.full_like(p.lambda_e, 0.01)
     g_s = torch.zeros_like(s)
+    step = ops.joint_stepper(p, sol.delta.shape, sol.mu, lo_s, ub_s, lr_d,
+                             lr_s, temp)
 
     def timed(fn):
         best = float("inf")
@@ -1152,14 +1398,39 @@ def joint_step_split(prob, sol, params, reps: int = 3):
             best = min(best, (time.perf_counter() - t0) / JOINT_STEPS)
         return 1e3 * best
 
-    step_ms = timed(lambda: ops.joint_step(p, sol.delta, s, sol.mu, lr_d,
-                                           temp))
-    proj_ms = timed(lambda: solver.project_conservation(
+    fused_ms = timed(lambda: step(sol.delta, s))
+    plan = pgd_kernel.joint_plan
+    pgd_kernel.joint_plan = lambda n, block_rows=0: ("split", 0, 0)
+    try:     # the same stepper, its wrapper sent down the split route
+        split_ms = timed(lambda: step(sol.delta, s))
+    finally:
+        pgd_kernel.joint_plan = plan
+    eager_ms = timed(lambda: solver.project_conservation(
         s - 0.01 * g_s, lo_s, ub_s))
-    print(f"[slice] joint refinement per step (host clock, synchronized, "
-          f"best of {reps} x {JOINT_STEPS}): fused joint step {step_ms:.3f} "
-          f"ms, s projection {proj_ms:.3f} ms", flush=True)
-    return {"step_ms": step_ms, "proj_ms": proj_ms}
+    print(f"[slice] a joint step (host clock, synchronized, best of {reps} "
+          f"x {JOINT_STEPS}): fused route {fused_ms:.4f} ms (the path's), "
+          f"split route {split_ms:.4f} ms (two launches); off the path, the "
+          f"eager s projection alone {eager_ms:.3f} ms", flush=True)
+    return {"fused_ms": fused_ms, "split_ms": split_ms, "eager_ms": eager_ms}
+
+
+@contextmanager
+def eager_projections():
+    """Counts ``ref.project_row`` calls on CUDA tensors while entered (the
+    eager projection, which no joint step on the card may take):
+    ``with eager_projections() as c: ...; c["calls"]``."""
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    plain, count = pgd_ref.project_row, {"calls": 0}
+
+    def counted(z, *args, **kw):
+        count["calls"] += int(z.is_cuda)
+        return plain(z, *args, **kw)
+
+    pgd_ref.project_row = counted
+    try:
+        yield count
+    finally:
+        pgd_ref.project_row = plain
 
 
 # ------------------------------------------------- phase 6: serving path
@@ -1296,7 +1567,7 @@ def profile_prefill(model, prefill_ms, B=SERVE_BATCH):
             model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
 
     prefill()
-    wall_ms, busy_ms, ours = profile_call(
+    wall_ms, busy_ms, ours, _ = profile_call(
         prefill, "profile_serve_prefill.txt",
         f"one Zamba2-7B prefill ({B} x {SERVE_PROMPT} tokens)")
     gla_ms = sum(ours.get(k, 0.0) for k in GLA_KERNELS)
@@ -1478,14 +1749,16 @@ def main():
     name, sms, clock_mhz = phase_device()
     card = Card(sms, clock_mhz)
     phase_build()
-    records = [phase_kernels(card), phase_ens_kernel(card),
-               phase_joint_kernel(card), phase_flash_kernel(card),
-               phase_gla_kernel(card)]
+    joint, s_project = phase_joint_kernel(card)
+    records = [phase_kernels(card), phase_ens_kernel(card), joint,
+               phase_flash_kernel(card), phase_gla_kernel(card), s_project]
     records[0]["launches"] = phase_main_path()
     counts, _ = phase_slice_path()
-    # kernel #1 counts on the main path; #2 and #3 on the slice path;
-    # #4 and #5 on the serving path
+    # kernel #1 counts on the main path; #2 and #3 (by route) and the split
+    # route's s_project on the slice path; #4 and #5 on the serving path
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
+    records[2]["launches_by_route"] = counts[5]
+    records[5]["launches"] = counts[6]
     (records[3]["launches"], records[4]["launches"]), \
         records[3]["launches_by_route"], records[4]["launches_by_route"] = \
         phase_serve()

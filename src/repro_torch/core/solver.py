@@ -12,8 +12,9 @@ the telemetry hooks).
   [inner PGD epoch -> clipped ascent on the campus power couplings].
 * ``pgd_epochs`` — the fused epoch (plain or CVaR ensemble), dispatched by
   ``kernels.vcc_pgd.ops``;
-* ``joint_epochs`` — joint spatio-temporal steps: the fused per-cluster
-  joint step, then the fleet-coupled projection of the shift s in PyTorch.
+* ``joint_epochs`` — joint spatio-temporal steps: the per-cluster joint
+  step and the fleet-coupled projection of the shift s, one launch of
+  kernel #3's fused route a step on the card.
 
 Every function takes optional leading batch axes (the scenario x seed batch)
 before the cluster axis; a per-rollout scalar has the batch shape.
@@ -105,16 +106,18 @@ def pgd_epochs(prob, delta, mu, lo, ub, lr_eff, temp, iters: int):
 
 def joint_epochs(prob, delta, s, mu, lo_s, ub_s, lr_d, lr_s, temp,
                  iters: int):
-    """``iters`` joint spatio-temporal steps. Each runs the fused
-    per-cluster joint step (the kernel for CUDA tensors: temporal bounds
-    recomputed from tau + s, delta gradient and projection, per-cluster
-    shift gradient g_s), then descends s and projects it onto
-    {sum_c s = 0} ∩ [lo_s, ub_s], one bisection row per rollout over the
-    cluster axis. delta (..., n, H); s/lo_s/ub_s (..., n); lr_d
-    (..., n, 1); lr_s/temp per rollout (...). Returns (delta, s)."""
+    """``iters`` joint spatio-temporal steps. Each runs the per-cluster
+    joint step (temporal bounds recomputed from tau + s, delta gradient and
+    projection, per-cluster shift gradient g_s), then descends s and
+    projects it onto {sum_c s = 0} ∩ [lo_s, ub_s], one bisection row per
+    rollout over the cluster axis: one launch of kernel #3 for CUDA
+    tensors, the plain version on the CPU (``ops.joint_stepper``, which
+    lays the round's fixed operands out once). delta (..., n, H);
+    s/lo_s/ub_s (..., n); lr_d (..., n, 1); lr_s/temp per rollout (...).
+    Returns (delta, s)."""
+    step = _ops.joint_stepper(prob, delta.shape, mu, lo_s, ub_s, lr_d, lr_s,
+                              temp)
     d, sv = delta, s
-    lr_s = torch.as_tensor(lr_s)[..., None]
     for _ in range(iters):
-        d, g_s = _ops.joint_step(prob, d, sv, mu, lr_d, temp)
-        sv = project_conservation(sv - lr_s * g_s, lo_s, ub_s)
+        d, sv = step(d, sv)
     return d, sv

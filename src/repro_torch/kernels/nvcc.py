@@ -91,12 +91,15 @@ def lead_strides(name: str, x: torch.Tensor, dims: int):
     return st
 
 
-def launch(fn, device: torch.device, args, what: str) -> None:
+def launch(fn, device: torch.device, args, what: str, codes=None) -> None:
     """Call entry point ``fn`` on the current stream of ``device``; tensors
-    pass as device pointers. Raises if the launch reports a CUDA error."""
+    pass as device pointers, None as a null pointer. Raises if the launch
+    reports an error: a CUDA error, or one of the entry point's own
+    ``codes`` (code: meaning)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args), stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        why = (codes or {}).get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: {why}")

@@ -1,21 +1,20 @@
 // Device code shared by the three VCC projected-gradient kernels
 // (pgd_epoch.cu, pgd_epoch_ens.cu, joint_step.cu).
 //
-// Two layouts. Kernels #1 and #2 (pgd_epoch, pgd_epoch_ens) take the
-// row-group layout of the last section of this file: a row of H <= 32
-// hours goes to a group of kLanes lanes, and lane j of the group keeps
-// hours j, j + kLanes, j + 2 kLanes, ... (NH = ceil(H / kLanes) of them) in
-// registers; a warp holds 32 / kLanes rows. A reduction runs over the
-// lane's own hours in registers (a fixed pairwise tree), then takes
-// log2(kLanes) __shfl_xor_sync stages with offsets < kLanes. Kernel #3
-// (joint_step) keeps the warp-per-row layout of warp_sum / warp_max /
-// warp_min, softmax_weight and project: hour h in lane h, lanes H..31
-// masked, five butterfly stages a reduction.
+// All three take the row-group layout of the last section of this file: a
+// row of H <= 32 hours goes to a group of kLanes lanes, and lane j of the
+// group keeps hours j, j + kLanes, j + 2 kLanes, ... (NH = ceil(H / kLanes)
+// of them) in registers; a warp holds 32 / kLanes rows. A reduction runs
+// over the lane's own hours in registers (a fixed pairwise tree), then
+// takes log2(kLanes) __shfl_xor_sync stages with offsets < kLanes. The
+// whole-warp reduction warp_reduce (five stages) serves joint_step.cu's
+// bisection of the fleet-coupled shift, whose row is a rollout's n
+// clusters spread over one warp.
 //
-// In both, a masked hour stays out of every reduction (-inf in a max, +inf
-// in a min, 0 in a sum), and a butterfly gives every lane of the row the
-// same bits (each stage adds the same two values, whichever lane adds
-// them), so a value reduced over the row is uniform across its lanes.
+// A masked hour stays out of every reduction (-inf in a max, +inf in a
+// min, 0 in a sum), and a butterfly gives every lane of the row the same
+// bits (each stage adds the same two values, whichever lane adds them), so
+// a value reduced over the row is uniform across its lanes.
 //
 // The compiler may contract a multiply and an add into one FMA wherever it
 // sees them. The step expressions that pgd_epoch and pgd_epoch_ens share
@@ -33,24 +32,6 @@ namespace vcc_pgd {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
 // The hour's power at the step's point: pow_nom + (pi d) tau24, where
 // pi_d = __fmul_rn(pi, d); one FMA.
 __device__ __forceinline__ float power_at(float pow_nom, float pi_d,
@@ -67,42 +48,14 @@ __device__ __forceinline__ float descend(float d, float lr, float lam,
   return __fmaf_rn(-lr, __fmul_rn(__fmul_rn(g, pi), tau24), d);
 }
 
-// ------------------------------------------ warp per row (joint_step.cu)
-
-// softmax_h(pw / temp) at this lane's hour (0 on masked lanes): 2 reductions
-__device__ __forceinline__ float softmax_weight(float pw, float temp, bool on) {
-  const float s = on ? pw / temp : -INFINITY;
-  const float s_max = warp_max(s);
-  const float ex = on ? expf(s - s_max) : 0.f;
-  return ex / warp_sum(ex);
-}
-
-// Projection of the row z onto {sum_h d = 0} ∩ [lo, ub]: clip(z - nu, lo,
-// ub) with nu from exactly `proj_iters` bisection steps on the bracket
-// [min z - max ub, max z - min lo] (no tolerance stop, as the reference).
-// ub_max / lo_min are the row's reduced box terms. 2 + proj_iters
-// reductions.
-__device__ __forceinline__ float project(float z, float lo_h, float ub_h,
-                                         float ub_max, float lo_min, bool on,
-                                         int proj_iters) {
-  float a = warp_min(on ? z : INFINITY) - ub_max;
-  float b = warp_max(on ? z : -INFINITY) - lo_min;
-  for (int k = 0; k < proj_iters; ++k) {
-    const float m = 0.5f * (a + b);
-    const float f = warp_sum(on ? fminf(fmaxf(z - m, lo_h), ub_h) : 0.f);
-    if (f > 0.f) a = m; else b = m;
-  }
-  const float nu = 0.5f * (a + b);
-  return fminf(fmaxf(z - nu, lo_h), ub_h);
-}
-
-// -------------------------- row groups (pgd_epoch.cu, pgd_epoch_ens.cu)
+// ------------------------------- row groups (all three kernels)
 
 // Lanes a row (a power of two) and whether the bisection stops once its
 // brackets stop moving. tools/pgd_probe.py builds other values with -D
 // (and -DPGD_ONLY_NH=n, one instance of NH hours a lane, to build fast);
-// the shipped kernels take these defaults, chosen by that probe (its
-// numbers: the header of pgd_epoch.cu).
+// the shipped kernels take these defaults, chosen by that probe and by
+// tools/joint_probe.py (their numbers: the headers of pgd_epoch.cu and
+// joint_step.cu).
 #ifndef PGD_LANES
 #define PGD_LANES 4
 #endif
@@ -176,6 +129,25 @@ __device__ __forceinline__ void group_finish_many(float (&v)[KB], Op op) {
   }
 }
 
+// v reduced under op over the whole warp: five butterfly stages, the
+// same bits on every lane.
+template <class Op>
+__device__ __forceinline__ float warp_reduce(float v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Whether v holds on every lane of this lane's group: one ballot of the
+// warp, read at the group's kLanes bits.
+__device__ __forceinline__ bool group_all(bool v) {
+  constexpr unsigned kGroupBits =
+      kLanes == 32 ? kFull : (1u << (kLanes & 31)) - 1u;
+  const unsigned bad = __ballot_sync(kFull, !v);
+  const int first = (threadIdx.x & 31) & ~(kLanes - 1);
+  return ((bad >> first) & kGroupBits) == 0u;
+}
+
 // The row's reduction under op of x, this lane's NH hours: the lane's own
 // hours by the tree, then the group's stages.
 template <int NH, class Op>
@@ -239,7 +211,8 @@ __device__ __forceinline__ void softmax_weights_many(float (&x)[KB][NH],
 
 // The row z (this lane's hours, in place) projected onto {sum_h d = 0} ∩
 // [lo, ub]: clip(z - nu, lo, ub), nu from `proj_iters` bisection steps on
-// the bracket [min z - max ub, max z - min lo], as project above; ub_max /
+// the bracket [min z - max ub, max z - min lo] (the plain version's
+// ref.project_row, without a tolerance stop); ub_max /
 // lo_min are the row's reduced box terms. Masked hours hold z = lo = ub =
 // 0, so they add 0 to the bisection's sums without a select. The groups of
 // a warp disagree on f > 0, so the bracket moves by selects, not branches.

@@ -8,14 +8,19 @@ their reductions, softmax and projection through ``csrc/pgd_common.cuh``:
 * ``pgd_epoch_ens.cu`` replaces ``kernel.py:251`` (``pgd_epoch_ens_pallas``):
   the CVaR ensemble epoch;
 * ``joint_step.cu`` replaces ``kernel.py:207`` (``joint_step_pallas``): one
-  joint spatio-temporal step.
+  joint spatio-temporal step, in two routes. The split route
+  (``joint_step_cuda``, then ``s_project_cuda``) writes (d', g_s) and then
+  the fleet-coupled shift s' in a second launch; the fused route
+  (``joint_step_s_cuda``) writes (d', s') in one launch, a thread-block
+  cluster of C blocks per rollout. ``joint_plan`` picks the route by the
+  rollout's n clusters.
 
-The two epochs take the row-group layout: a row of H <= 32 hours goes to
+All three take the row-group layout: a row of H <= 32 hours goes to
 ``LANES`` lanes, each holding ceil(H / LANES) hours in registers, so a warp
 holds 32 / LANES rows and a reduction takes log2(LANES) shuffle stages after
 the lane's own hours; the bisection leaves its loop once no bracket of a warp
-moves (the same bits as the fixed count). The joint step
-keeps one warp a row. ``tools/pgd_probe.py`` times the epochs' variants
+moves (the same bits as the fixed count). ``tools/pgd_probe.py`` times the
+epochs' variants and ``tools/joint_probe.py`` the joint step's
 (``build(name, defines=...)``, ``variant``).
 
 They are built, loaded and launched through ``kernels/nvcc.py`` (at first
@@ -25,7 +30,10 @@ or loaded when this module is imported, so the CPU tests import it without
 ``nvcc``.
 
 Each ``*_cuda`` wrapper launches on ``torch.cuda.current_stream()`` and adds
-one to its ``launches`` attribute per launch. Beside each wrapper,
+one to its ``launches`` attribute per launch (kernel #3's two routes count
+on ``joint_step_cuda.launches``, and by route on ``joint_step_cuda.routes``;
+the split route's shift update on ``s_project_cuda.launches``). Beside each
+wrapper,
 ``*_flops`` and ``*_bytes`` count the function's work (the bound in
 ``chip_smoke.py`` and PERF.md comes from them) and ``*_shuffles`` the warp
 shuffles its source issues (the shuffle-issue floor).
@@ -56,11 +64,19 @@ LANES = 4
 STAGES = LANES.bit_length() - 1
 
 _P, _I, _F = nvcc.P, nvcc.I, nvcc.F
-# C entry point and argument kinds (pointer, int, float) of each library,
-# the stream after them
-_ENTRY = {"pgd_epoch": ("pgd_epoch_f32", _P * 12 + _I * 4),
-          "pgd_epoch_ens": ("pgd_epoch_ens_f32", _P * 13 + _I * 6),
-          "joint_step": ("joint_step_f32", _P * 17 + _I * 2 + _F * 2 + _I)}
+# each entry point: its source, C name and argument kinds (pointer, int,
+# float), the stream after them
+_ENTRY = {"pgd_epoch": ("pgd_epoch", "pgd_epoch_f32", _P * 12 + _I * 4),
+          "pgd_epoch_ens": ("pgd_epoch_ens", "pgd_epoch_ens_f32",
+                            _P * 13 + _I * 6),
+          "joint_step": ("joint_step", "joint_step_f32",
+                         _P * 17 + _I * 2 + _F * 2 + _I),
+          "joint_step_s": ("joint_step", "joint_step_s_f32",
+                           _P * 21 + _I * 5 + _F * 2 + _I),
+          "s_project": ("joint_step", "s_project_f32", _P * 7 + _I * 3)}
+# what the entry points' own error codes mean
+_CODES = {10001: "no thread-block cluster of this shape fits the card "
+                 "(cudaOccupancyMaxActiveClusters is 0)"}
 _libs = {}
 
 
@@ -72,18 +88,20 @@ def build(name: str = "pgd_epoch", verbose: bool = False, defines=()):
     return nvcc.build(SOURCES[name], HEADERS, flags, verbose=verbose)
 
 
-def variant(name: str, defines):
-    """The entry point of ``SOURCES[name]`` built with ``defines`` (such
-    as ``("PGD_LANES=8", "PGD_EARLY_EXIT=0")``). Put it in ``_libs[name]``
-    and the wrapper launches it; the shipped build is the one without."""
-    return nvcc.load(build(name, defines=defines)[0], *_ENTRY[name])
+def variant(entry: str, defines):
+    """Entry point ``entry`` (a key of ``_ENTRY``) of its source built with
+    ``defines`` (such as ``("PGD_LANES=8", "PGD_EARLY_EXIT=0")``). Put it
+    in ``_libs[entry]`` and the wrapper launches it; the shipped build is
+    the one without."""
+    src, cname, sig = _ENTRY[entry]
+    return nvcc.load(build(src, defines=defines)[0], cname, sig)
 
 
-def _load(name: str):
-    """The C entry point of kernel ``name``, built and loaded at first use."""
-    if name not in _libs:
-        _libs[name] = nvcc.load(build(name)[0], *_ENTRY[name])
-    return _libs[name]
+def _load(entry: str):
+    """Entry point ``entry``, built and loaded at first use."""
+    if entry not in _libs:
+        _libs[entry] = variant(entry, ())
+    return _libs[entry]
 
 
 def _check(name, x, shape):
@@ -118,10 +136,10 @@ def _check_all(wide, slim, rows, H, extra=()):
         raise ValueError("all operands must be on one CUDA device")
 
 
-def _launch(name, delta, *args):
-    """Call kernel ``name``'s entry point on the current stream of
-    ``delta``'s device."""
-    nvcc.launch(_load(name), delta.device, args, name)
+def _launch(entry, delta, *args):
+    """Call entry point ``entry`` on the current stream of ``delta``'s
+    device."""
+    nvcc.launch(_load(entry), delta.device, args, entry, _CODES)
 
 
 # ------------------------------------------------------------- kernel #1
@@ -261,37 +279,160 @@ def ens_epoch_bytes(rows: int, H: int, K: int) -> int:
 
 # ------------------------------------------------------------- kernel #3
 
-def joint_step_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
-                    u_pow_cap, capacity, price, lr_d, temp, lambda_e, *,
-                    drop_limit: float, proj_iters: int = 50):
-    """Launch one joint step. d/eta/pi/pow_nom/u_if/u_if_q/ratio: (rows, H)
-    with H <= 32; s/tau/u_pow_cap/capacity/price/lr_d/temp/lambda_e:
-    (rows, 1). All float32, contiguous, on one CUDA device. Returns
-    (d' (rows, H), g_s (rows, 1))."""
+# the fused route: blocks a cluster (the portable cluster size) and rows a
+# block at most (csrc/joint_step.cu), and the rows a block it aims at
+# (tools/joint_probe.py chose it: the header of csrc/joint_step.cu)
+MAX_CLUSTER = 8
+MAX_BLOCK_ROWS = 256
+BLOCK_ROWS = 128
+# the split route's shift update keeps a rollout in shared memory
+MAX_PROJECT_N = 16384
+
+
+def joint_plan(n: int, block_rows: int = BLOCK_ROWS):
+    """The route of a joint step over rollouts of ``n`` clusters, as
+    (route, C, R): ``("fused", C, R)``, a cluster of C = ceil(n /
+    block_rows) blocks (at most ``MAX_CLUSTER``) of R = ceil(n / C) rows;
+    ``("split", 0, 0)`` where R would pass ``MAX_BLOCK_ROWS``."""
+    if n < 1:
+        raise ValueError(f"a rollout has n >= 1 clusters, got {n}")
+    C = min(-(-n // max(int(block_rows), 1)), MAX_CLUSTER)
+    R = -(-n // C)
+    if R > MAX_BLOCK_ROWS:
+        return "split", 0, 0
+    return "fused", C, R
+
+
+def _joint_operands(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+                    u_pow_cap, capacity, price, lr_d, temp, lambda_e,
+                    extra=()):
     rows, H = _rows_h(d)
     _check_all(dict(d=d, eta=eta, pi=pi, pow_nom=pow_nom, u_if=u_if,
                     u_if_q=u_if_q, ratio=ratio),
                dict(s=s, tau=tau, u_pow_cap=u_pow_cap, capacity=capacity,
                     price=price, lr_d=lr_d, temp=temp, lambda_e=lambda_e),
-               rows, H)
+               rows, H, extra)
+    return rows, H
+
+
+def _drop_args(drop_limit):
+    """drop_limit as float32 and the float32 value of -drop_limit + 1e-9,
+    which the reference compares float32 ub with."""
+    return (float(np.float32(drop_limit)),
+            float(np.float32(-float(drop_limit) + 1e-9)))
+
+
+def _rollouts(rows, n, lr_s, extra):
+    """B = rows / n rollouts; lr_s (B, 1) and ``extra`` (rows, 1)."""
+    if n < 1 or rows % n:
+        raise ValueError(f"{rows} rows are not rollouts of n = {n}")
+    B = rows // n
+    _check("lr_s", lr_s, (B, 1))
+    for name, x in extra.items():
+        _check(name, x, (rows, 1))
+    return B
+
+
+def _nu_out(nu_out, blocks, device):
+    if nu_out is not None:
+        _check("nu_out", nu_out, (blocks, 2))
+        if nu_out.device != device:
+            raise ValueError("nu_out: on the operands' device expected")
+    return nu_out
+
+
+def joint_step_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+                    u_pow_cap, capacity, price, lr_d, temp, lambda_e, *,
+                    drop_limit: float, proj_iters: int = 50):
+    """Launch one joint step on the split route. d/eta/pi/pow_nom/u_if/
+    u_if_q/ratio: (rows, H) with H <= 32; s/tau/u_pow_cap/capacity/price/
+    lr_d/temp/lambda_e: (rows, 1). All float32, contiguous, on one CUDA
+    device. Returns (d' (rows, H), g_s (rows, 1))."""
+    rows, H = _joint_operands(d, s, eta, pi, pow_nom, tau, u_if, u_if_q,
+                              ratio, u_pow_cap, capacity, price, lr_d, temp,
+                              lambda_e)
     d_out = torch.empty_like(d)
     gs_out = torch.empty_like(s)
-    # the reference compares float32 ub with the float32 value of
-    # -drop_limit + 1e-9
-    thr = float(np.float32(-float(drop_limit) + 1e-9))
     _launch("joint_step", d, d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
             u_pow_cap, capacity, price, lr_d, temp, lambda_e, d_out, gs_out,
-            rows, H, float(np.float32(drop_limit)), thr, int(proj_iters))
+            rows, H, *_drop_args(drop_limit), int(proj_iters))
     joint_step_cuda.launches += 1
+    joint_step_cuda.routes["split"] += 1
     return d_out, gs_out
 
 
 joint_step_cuda.launches = 0
+joint_step_cuda.routes = {"fused": 0, "split": 0}   # launches by route
+
+
+def s_project_cuda(s, g_s, lr_s, lo_s, ub_s, *, n: int, proj_iters: int = 50,
+                   nu_out=None):
+    """Launch the split route's shift update: per rollout of ``n``
+    clusters, s' = clip(z - nu, lo_s, ub_s) with z = s - lr_s g_s and nu
+    by bisection (``ref.project_row``). s/g_s/lo_s/ub_s: (rows, 1) with
+    rows = B n, n <= ``MAX_PROJECT_N``; lr_s: (B, 1). ``nu_out`` (B, 2)
+    takes each rollout's (nu, final bracket width) where given. Returns
+    s' (rows, 1)."""
+    B = _rollouts(s.shape[0], n, lr_s,
+                  dict(s=s, g_s=g_s, lo_s=lo_s, ub_s=ub_s))
+    if n > MAX_PROJECT_N:
+        raise ValueError(f"s_project takes n <= {MAX_PROJECT_N} clusters a "
+                         f"rollout, got {n}")
+    if len({x.device for x in (s, g_s, lr_s, lo_s, ub_s)}) != 1:
+        raise ValueError("all operands must be on one CUDA device")
+    out = torch.empty_like(s)
+    _launch("s_project", s, s, g_s, lr_s, lo_s, ub_s, out,
+            _nu_out(nu_out, B, s.device), B, int(n), int(proj_iters))
+    s_project_cuda.launches += 1
+    return out
+
+
+s_project_cuda.launches = 0
+
+
+def joint_step_s_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+                      u_pow_cap, capacity, price, lr_d, temp, lambda_e, lo_s,
+                      ub_s, lr_s, *, n: int, drop_limit: float,
+                      proj_iters: int = 50, block_rows: int = BLOCK_ROWS,
+                      nu_out=None):
+    """One joint step with the shift update: the operands of
+    ``joint_step_cuda`` for rows = B n, the rows of B rollouts of ``n``
+    clusters one after another, with lo_s/ub_s (rows, 1) and lr_s (B, 1).
+    Returns (d' (rows, H), s' (rows, 1)).
+
+    ``joint_plan(n, block_rows)`` picks the route: the fused route, one
+    launch of B clusters of C blocks; or, for n beyond one cluster's rows,
+    the split route, ``joint_step_cuda`` then ``s_project_cuda``. A failed
+    launch raises on either; neither falls back to the other. ``nu_out``
+    takes each block's (nu, final bracket width), (B C, 2) on the fused
+    route and (B, 2) on the split one."""
+    rows, H = _joint_operands(d, s, eta, pi, pow_nom, tau, u_if, u_if_q,
+                              ratio, u_pow_cap, capacity, price, lr_d, temp,
+                              lambda_e, extra=(lo_s, ub_s, lr_s))
+    B = _rollouts(rows, n, lr_s, dict(lo_s=lo_s, ub_s=ub_s))
+    route, C, R = joint_plan(n, block_rows)
+    if route == "split":
+        d_out, g_s = joint_step_cuda(
+            d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio, u_pow_cap,
+            capacity, price, lr_d, temp, lambda_e, drop_limit=drop_limit,
+            proj_iters=proj_iters)
+        return d_out, s_project_cuda(s, g_s, lr_s, lo_s, ub_s, n=n,
+                                     proj_iters=proj_iters, nu_out=nu_out)
+    d_out = torch.empty_like(d)
+    s_out = torch.empty_like(s)
+    _launch("joint_step_s", d, d, s, eta, pi, pow_nom, tau, u_if, u_if_q,
+            ratio, u_pow_cap, capacity, price, lr_d, temp, lambda_e, lo_s,
+            ub_s, lr_s, d_out, s_out, _nu_out(nu_out, B * C, d.device), B,
+            int(n), C, R, H, *_drop_args(drop_limit), int(proj_iters))
+    joint_step_cuda.launches += 1
+    joint_step_cuda.routes["fused"] += 1
+    return d_out, s_out
 
 
 def joint_step_flops(rows: int, H: int, proj_iters: int = 50) -> int:
-    """FP32 operations of one joint step as ``csrc/joint_step.cu`` performs
-    them (counted as ``epoch_flops``):
+    """FP32 operations of one joint step's function (counted as
+    ``epoch_flops``: the reference's work, all ``proj_iters`` bisection
+    steps):
 
     per hour: the box 10 and its feasibility compare 1, pow 5, softmax 4,
     gcoef 4, g_d 1, the g_s term 2, z 2, final clip 3, and 3 per bisection
@@ -304,15 +445,71 @@ def joint_step_flops(rows: int, H: int, proj_iters: int = 50) -> int:
     return rows * ((32 + 3 * P) * H + (8 + P) * (H - 1) + 3 * P + 11)
 
 
+def shift_flops(B: int, n: int, proj_iters: int = 50) -> int:
+    """FP32 operations of the shift update of B rollouts of n clusters
+    (counted as ``epoch_flops``, all ``proj_iters`` steps): per cluster z
+    2, final clip 3, and 3 per bisection step; per rollout the bracket's
+    four reductions 4 (n - 1) and its two differences, one (n - 1) sum and
+    3 scalar ops per bisection step, and nu 2."""
+    P = proj_iters
+    return B * ((5 + 3 * P) * n + (4 + P) * (n - 1) + 3 * P + 4)
+
+
+def joint_step_s_flops(B: int, n: int, H: int, proj_iters: int = 50) -> int:
+    """FP32 operations of the fused route: the joint step of B n rows and
+    the shift update of B rollouts of n clusters."""
+    return joint_step_flops(B * n, H, proj_iters) \
+        + shift_flops(B, n, proj_iters)
+
+
 def joint_step_shuffles(rows: int, proj_iters: int = 50) -> int:
-    """Warp-shuffle instructions of one joint step: eight five-stage
-    reductions (sum ub, softmax max and sum, g_s, box max and min, bracket
-    min and max) and one per bisection step (the feasibility vote is not a
-    shuffle)."""
-    return rows * 5 * (8 + proj_iters)
+    """Warp-shuffle instructions of one joint step on the split route, in
+    the layout of ``epoch_shuffles``: eight reductions a row (sum ub,
+    softmax max and sum, g_s, box max and min, bracket min and max) and one
+    per bisection step (all ``proj_iters``: the early exit issues fewer);
+    the feasibility ballot is not a shuffle."""
+    warps = -(-rows * LANES // 32)
+    return warps * STAGES * (8 + proj_iters)
+
+
+def shift_shuffles(warps: int, proj_iters: int = 50) -> int:
+    """Warp-shuffle instructions of ``warps`` warps each bisecting one
+    rollout's shift: the bracket's four and one sum per bisection step,
+    five stages each."""
+    return warps * 5 * (4 + proj_iters)
+
+
+def joint_step_s_shuffles(B: int, n: int, proj_iters: int = 50,
+                          block_rows: int = BLOCK_ROWS) -> int:
+    """Warp-shuffle instructions of one joint step with the shift update on
+    the route ``joint_plan`` picks: the fused route's B C blocks each run
+    their rows' groups (whole warps of ``LANES``-lane groups, dead groups
+    included) and one warp's bisection of the shift; the split route adds
+    one bisecting warp per rollout to ``joint_step_shuffles``."""
+    route, C, R = joint_plan(n, block_rows)
+    if route == "split":
+        return joint_step_shuffles(B * n, proj_iters) \
+            + shift_shuffles(B, proj_iters)
+    groups = min(R, 512 // LANES)
+    warps = -(-groups * LANES // 32) * -(-R // groups)
+    return B * C * (warps * STAGES * (8 + proj_iters)
+                    + 5 * (4 + proj_iters))
 
 
 def joint_step_bytes(rows: int, H: int) -> int:
     """Bytes one joint step must move: 7 wide and 8 slim float32 inputs
     read once, one wide and one slim output written once."""
     return 4 * rows * (8 * H + 9)
+
+
+def shift_bytes(B: int, n: int) -> int:
+    """Bytes the split route's shift update must move: s, g_s, lo_s and
+    ub_s read once, s' written once, and lr_s, per rollout."""
+    return 4 * (5 * B * n + B)
+
+
+def joint_step_s_bytes(B: int, n: int, H: int) -> int:
+    """Bytes the fused route must move: those of ``joint_step_bytes`` for
+    rows = B n with g_s not written, plus lo_s and ub_s read and s' written
+    a row, and lr_s a rollout."""
+    return joint_step_bytes(B * n, H) + 4 * (2 * B * n + B)

@@ -1,6 +1,9 @@
 """Dispatchers for the VCC PGD kernels.
 
-Counterparts of ``repro.kernels.vcc_pgd.ops.pgd_epoch`` and ``joint_step``.
+Counterparts of ``repro.kernels.vcc_pgd.ops.pgd_epoch`` and ``joint_step``,
+and ``joint_step_s``: the joint step with the fleet-coupled shift update
+that ``repro.core.solver.joint_epochs`` runs after it (``joint_stepper``
+lays a dual-ascent round's fixed operands out once for its steps).
 They lay a ``core.vcc.VCCProblem`` out in the kernels' operands and pick the
 route by where the tensors lie: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to the plain version. There is no fallback from one to
@@ -102,3 +105,53 @@ def joint_step(prob, delta, s, mu, lr_d, temp, proj_iters: int = 50):
         _per_rollout(lay, prob.lambda_e, slim),
         drop_limit=float(prob.drop_limit), proj_iters=proj_iters)
     return d2.reshape(shape), g_s.reshape(shape[:-1])
+
+
+def joint_stepper(prob, shape, mu, lo_s, ub_s, lr_d, lr_s, temp,
+                  proj_iters: int = 50):
+    """The joint step with the shift update for the steps of one
+    dual-ascent round: everything fixed within the round (the price at
+    ``mu``, the problem's operands in the route's layout, the per-rollout
+    scalars) is laid out once. Returns ``step(delta, s) -> (delta', s')``,
+    delta (..., n, H) of ``shape`` and s (..., n), on the route of
+    ``prob``'s device: on the card one launch of kernel #3
+    (``kernel.joint_step_s_cuda``), on the CPU ``ref.joint_step_s_arrays``.
+    lo_s/ub_s (..., n); mu (..., n_dc); lr_d (..., n, 1); lr_s and temp
+    per rollout (...)."""
+    slim = shape[:-1] + (1,)
+    on_card, lay = _layout(prob.eta)
+    price = prob.lambda_p[..., None] + torch.gather(mu, -1, prob.campus)
+    fixed = (
+        *(lay(x, shape) for x in (prob.eta, prob.pi, prob.pow_nom)),
+        lay(prob.tau[..., None], slim),
+        *(lay(x, shape) for x in (prob.u_if, prob.u_if_q, prob.ratio)),
+        *(lay(x[..., None], slim) for x in (prob.u_pow_cap, prob.capacity,
+                                             price)),
+        lay(lr_d, slim), _per_rollout(lay, temp, slim),
+        _per_rollout(lay, prob.lambda_e, slim),
+        lay(lo_s[..., None], slim), lay(ub_s[..., None], slim))
+    lr = torch.as_tensor(lr_s)[..., None]
+    kw = dict(drop_limit=float(prob.drop_limit), proj_iters=proj_iters)
+    if not on_card:
+        def step(d, s):
+            d2, s2 = _ref.joint_step_s_arrays(d, s[..., None], *fixed, lr,
+                                              **kw)
+            return d2, s2[..., 0]
+        return step
+
+    n, H = shape[-2], shape[-1]
+    lr = lay(lr, shape[:-2] + (1,))
+
+    def step(d, s):
+        d2, s2 = _kernel.joint_step_s_cuda(
+            d.reshape(-1, H), s.reshape(-1, 1), *fixed, lr, n=n, **kw)
+        return d2.reshape(shape), s2.reshape(shape[:-1])
+    return step
+
+
+def joint_step_s(prob, delta, s, mu, lo_s, ub_s, lr_d, lr_s, temp,
+                 proj_iters: int = 50):
+    """One joint step and the shift update for a (possibly batched)
+    VCCProblem (``joint_stepper``'s step once). Returns (delta', s')."""
+    return joint_stepper(prob, delta.shape, mu, lo_s, ub_s, lr_d, lr_s, temp,
+                         proj_iters)(delta, s)

@@ -12,7 +12,11 @@ Mirrors ``repro.kernels.vcc_pgd.ref`` op for op:
   the single-member step;
 * ``joint_step_arrays`` — one joint spatio-temporal step: bounds recomputed
   from the shifted budget tau + s, the delta step, and the per-cluster shift
-  gradient.
+  gradient (the plain version of kernel #3's split route, with
+  ``project_row`` for its shift update);
+* ``joint_step_s_arrays`` — that step followed by the fleet-coupled shift
+  update, one ``project_row`` row per rollout (the plain version of kernel
+  #3's fused route).
 
 The CPU path of ``ops`` runs these; on the card the hand-written kernels
 (``kernel.py``) run instead, and ``chip_smoke.py`` holds the two against each
@@ -176,3 +180,20 @@ def joint_step_arrays(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
     g_s = (gcoef * (1.0 + d)).sum(-1, keepdim=True) / 24.0
     d2 = project_row(d - lr_d * g_d, lo, ub, proj_iters)
     return d2, g_s
+
+
+def joint_step_s_arrays(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
+                        u_pow_cap, capacity, price, lr_d, temp, lambda_e,
+                        lo_s, ub_s, lr_s, drop_limit: float,
+                        proj_iters: int = 50):
+    """One joint step and the shift update of ``core.solver.joint_epochs``:
+    ``joint_step_arrays``, then s' = project_row(s - lr_s g_s, lo_s, ub_s)
+    over the cluster axis, one row per rollout. The operands of
+    ``joint_step_arrays`` with s/lo_s/ub_s (..., n, 1) columns and lr_s a
+    per-rollout (..., 1). Returns (d', s' (..., n, 1))."""
+    d2, g_s = joint_step_arrays(d, s, eta, pi, pow_nom, tau, u_if, u_if_q,
+                                ratio, u_pow_cap, capacity, price, lr_d,
+                                temp, lambda_e, drop_limit, proj_iters)
+    z = s[..., 0] - lr_s * g_s[..., 0]
+    return d2, project_row(z, lo_s[..., 0], ub_s[..., 0],
+                           proj_iters)[..., None]

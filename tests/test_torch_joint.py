@@ -1,10 +1,15 @@
 """The joint spatio-temporal solve: the port's joint step against the JAX
-package's jnp oracle and its Pallas kernel (interpreter), ``solve_joint``
-against the live reference, and the port's own contracts.
+package's jnp oracle and its Pallas kernel (interpreter), the step with its
+shift update and ``joint_epochs`` against the reference's, ``solve_joint``
+against the live reference, and the port's own contracts (kernel #3's route
+plan and work counts).
 
 Tolerances: the joint step atol 1e-5 on d' and 1e-5 x max|g_s| on g_s (one
 step of the same float32 arithmetic, hour sums in another order than
-XLA's). ``solve_joint`` (20 x 80 temporal steps, then 8 x 25 joint steps):
+XLA's); with the shift update, s' 1e-5 x max|z| (z = s - lr_s g_s: the
+bisection's sums run in another order, so nu may move by a bracket width).
+``joint_epochs`` (25 joint steps) and ``solve_joint`` (20 x 80 temporal
+steps, then 8 x 25 joint steps):
 delta, VCC and mu rtol 1e-4 and atol 1e-4, s and tau atol 1e-4 x max tau,
 after the best-of verdict per rollout (``take``) is compared first. A
 batch equals its per-problem solves to 1e-6.
@@ -16,12 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import solver as jsolver
 from repro.core import spatial as jspatial
 from repro.core import vcc as jvcc
 from repro.kernels.vcc_pgd import kernel as jkernel
 from repro.kernels.vcc_pgd import ref as jref
 from repro_torch import convert
-from repro_torch.core import spatial, vcc
+from repro_torch.core import solver, spatial, vcc
 from repro_torch.kernels.vcc_pgd import kernel, ops, ref
 
 H = 24
@@ -104,7 +110,9 @@ def test_joint_step_kernel_refuses_cpu_tensors_and_counts_its_work():
         kernel.joint_step_cuda(*t, col, col, drop_limit=DROP)
     assert kernel.joint_step_cuda.launches == before
     assert kernel.joint_step_bytes(14336, 24) == 4 * 14336 * (8 * 24 + 9)
-    assert kernel.joint_step_shuffles(10) == 10 * 5 * 58
+    # 10 rows on groups of 4 lanes: 2 warps, 2 stages a reduction, 58
+    # reductions a row
+    assert kernel.joint_step_shuffles(10) == 2 * 2 * 58
     assert kernel.joint_step_flops(10, 24) > 0
 
 
@@ -146,6 +154,148 @@ def test_ops_joint_step_keeps_rollouts_apart():
         np.testing.assert_allclose(d2[b].numpy(), db.numpy(), rtol=0,
                                    atol=1e-7)
         np.testing.assert_allclose(g_s[b].numpy(), gb.numpy(), rtol=1e-6)
+
+
+def _joint_inputs(n, B, mobility, seed):
+    """B zonal problems of n clusters (JAX and port, the port's stacked)
+    and one joint step's state and step sizes, made with numpy: delta in
+    its box, s within the shift bounds at each rollout's mobility, mu > 0,
+    lr_d as ``solve_joint`` scales it, lr_s per rollout."""
+    rng = np.random.default_rng(seed)
+    pairs = [_pair(jvcc.synthetic_zonal_problem(n=n, seed=seed + b))
+             for b in range(B)]
+    batch = _stack([q for _, q in pairs])
+    lo_s, ub_s = spatial.shift_bounds(batch, torch.tensor(mobility))
+    u = rng.uniform(size=(B, n)).astype(np.float32)
+    s = (lo_s + torch.as_tensor(u) * (ub_s - lo_s)).numpy()
+    d = (0.2 * (rng.uniform(size=(B, n, H)) - 0.5)).astype(np.float32)
+    d -= d.mean(-1, keepdims=True)
+    mu = (0.05 * rng.uniform(size=(B, batch.campus_limit.shape[-1]))
+          ).astype(np.float32)
+    lr_d = solver.scaled_lr(0.5, batch.pi, batch.tau, batch.eta,
+                            batch.lambda_e, batch.lambda_p).numpy()
+    lr_s = (0.01 * (1 + rng.uniform(size=B))).astype(np.float32)
+    temp = solver.peak_temperature(batch.pow_nom, 0.02).numpy()
+    return pairs, batch, dict(d=d, s=s, mu=mu, lo_s=lo_s.numpy(),
+                              ub_s=ub_s.numpy(), lr_d=lr_d, lr_s=lr_s,
+                              temp=temp)
+
+
+def _port_args(x):
+    return [torch.as_tensor(x[k]) for k in ("d", "s", "mu", "lo_s", "ub_s",
+                                           "lr_d", "lr_s", "temp")]
+
+
+def _jax_epochs(pairs, x, iters, **kw):
+    """The reference's ``joint_epochs`` on each rollout alone."""
+    out = [jsolver.joint_epochs(
+        jp, jnp.asarray(x["d"][b]), jnp.asarray(x["s"][b]),
+        jnp.asarray(x["mu"][b]), jnp.asarray(x["lo_s"][b]),
+        jnp.asarray(x["ub_s"][b]), jnp.asarray(x["lr_d"][b]),
+        jnp.float32(x["lr_s"][b]), jnp.float32(x["temp"][b]), iters, **kw)
+        for b, (jp, _) in enumerate(pairs)]
+    return (np.stack([np.asarray(o[0]) for o in out]),
+            np.stack([np.asarray(o[1]) for o in out]))
+
+
+@pytest.mark.parametrize("interpret", (False, True),
+                         ids=("jnp", "pallas-interpret"))
+@pytest.mark.parametrize("B,n", ((1, 5), (3, 5), (1, 37), (3, 37)))
+def test_joint_step_s_matches_reference_step(B, n, interpret):
+    """One step with its shift update (``ref.joint_step_s_arrays``, through
+    ``ops.joint_step_s``) against one step of the reference's
+    ``joint_epochs``: its ``joint_step`` (jnp oracle or the Pallas kernel in
+    the interpreter), then the shift's projection. With three rollouts,
+    the middle one is at mobility 0 (lo_s = ub_s = 0: s' is exactly 0)."""
+    mob = (0.3,) if B == 1 else (0.3, 0.0, 0.6)
+    pairs, batch, x = _joint_inputs(n, B, mob, 40 + n)
+    jd, js = _jax_epochs(pairs, x, 1, use_pallas=False, interpret=interpret)
+    d, s, mu, lo_s, ub_s, lr_d, lr_s, temp = _port_args(x)
+    before = kernel.joint_step_cuda.launches
+    d2, s2 = ops.joint_step_s(batch, d, s, mu, lo_s, ub_s, lr_d, lr_s, temp)
+    assert kernel.joint_step_cuda.launches == before     # CPU -> plain
+    assert d2.shape == (B, n, H) and s2.shape == (B, n)
+    np.testing.assert_allclose(d2.numpy(), jd, rtol=0, atol=1e-5)
+    _, g_s = ops.joint_step(batch, d, s, mu, lr_d, temp)
+    z = s - lr_s[:, None] * g_s
+    np.testing.assert_allclose(s2.numpy(), js, rtol=0,
+                               atol=1e-5 * float(z.abs().max()))
+    if B == 3:
+        assert not s2[1].any() and s2[0].abs().max() > 0
+    assert float(s2.sum(-1).abs().max()) <= 1e-4 * float(z.abs().max())
+
+
+@pytest.mark.parametrize("B", (1, 2))
+def test_joint_epochs_match_reference_at_25_steps(B):
+    """A dual-ascent round's 25 joint steps (``solver.joint_epochs``, one
+    ``ops.joint_stepper`` for the round) against the reference's
+    ``joint_epochs`` per rollout, at the tolerances of
+    ``test_solve_joint_matches_reference_at_mobility_03``."""
+    pairs, batch, x = _joint_inputs(8, B, (0.3, 0.6)[:B], 3)
+    jd, js = _jax_epochs(pairs, x, 25, use_pallas=False)
+    d, s, mu, lo_s, ub_s, lr_d, lr_s, temp = _port_args(x)
+    d2, s2 = solver.joint_epochs(batch, d, s, mu, lo_s, ub_s, lr_d, lr_s,
+                                 temp, 25)
+    scale = float(batch.tau.abs().max())
+    np.testing.assert_allclose(s2.numpy(), js, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(d2.numpy(), jd, rtol=1e-4, atol=1e-4)
+    assert float((s2 - s).abs().max()) > 1e-3 * scale     # s moved
+
+
+@pytest.mark.parametrize("n,route,C,R", (
+    (1, "fused", 1, 1), (5, "fused", 1, 5), (128, "fused", 1, 128),
+    (129, "fused", 2, 65), (512, "fused", 4, 128), (1024, "fused", 8, 128),
+    (1025, "fused", 8, 129), (2048, "fused", 8, 256),
+    (2049, "split", 0, 0), (3000, "split", 0, 0)))
+def test_joint_plan_picks_the_route_by_n(n, route, C, R):
+    assert kernel.joint_plan(n) == (route, C, R)
+
+
+def test_joint_plan_covers_every_fused_n():
+    """Every n up to 8 x 256 is fused, in at most 8 blocks of at most 256
+    rows, with no block left empty; rows a block follow ``block_rows``."""
+    for n in range(1, kernel.MAX_CLUSTER * kernel.MAX_BLOCK_ROWS + 1):
+        route, C, R = kernel.joint_plan(n)
+        assert route == "fused" and 1 <= C <= kernel.MAX_CLUSTER
+        assert R <= kernel.MAX_BLOCK_ROWS and C * R >= n > (C - 1) * R
+    assert [kernel.joint_plan(512, br)[1:] for br in (256, 128, 64)] == \
+        [(2, 256), (4, 128), (8, 64)]
+    with pytest.raises(ValueError):
+        kernel.joint_plan(0)
+
+
+def test_joint_step_s_kernels_refuse_cpu_tensors_and_count_their_work():
+    a, lam = joint_rows(12, 3)
+    t = [torch.as_tensor(a[k]) for k in ORDER]
+    col = torch.ones(12, 1)
+    counts = (kernel.joint_step_cuda.launches,
+              dict(kernel.joint_step_cuda.routes),
+              kernel.s_project_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.joint_step_s_cuda(*t, col, col, -col, col, torch.ones(3, 1),
+                                 n=4, drop_limit=DROP)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.s_project_cuda(col, col, torch.ones(3, 1), -col, col, n=4)
+    assert counts == (kernel.joint_step_cuda.launches,
+                      kernel.joint_step_cuda.routes,
+                      kernel.s_project_cuda.launches)
+    rows, B, n = 14336, 28, 512
+    # the fused route: g_s not written; lo_s, ub_s read and s' written a
+    # row, lr_s read a rollout
+    assert kernel.joint_step_s_bytes(B, n, H) == \
+        4 * rows * (8 * H + 9) + 4 * (2 * rows + B)
+    assert kernel.shift_bytes(B, n) == 4 * (5 * rows + B)
+    # the shift's bisection: 3 operations a cluster and step, and a sum
+    assert kernel.joint_step_s_flops(B, n, H) - \
+        kernel.joint_step_flops(rows, H) == kernel.shift_flops(B, n) \
+        >= B * 50 * (3 * n + n - 1)
+    # fused at n = 512: 4 blocks of 128 rows a rollout, 16 warps of row
+    # groups and one bisecting warp (5 stages, 4 + 50 reductions) a block
+    assert kernel.joint_step_s_shuffles(B, n) == \
+        B * 4 * (16 * 2 * 58 + 5 * 54)
+    # split at n = 3,000: the row step, and one bisecting warp a rollout
+    assert kernel.joint_step_s_shuffles(2, 3000) == \
+        kernel.joint_step_shuffles(6000) + 2 * 5 * 54
 
 
 def _solve_both(jp, p, mobility, jmobility, **kw):

@@ -8,7 +8,10 @@ also run on a machine that has only PyTorch:
 
 Tolerances: atol 1e-4 on delta after 80 steps of either epoch (the kernels
 sum the hours, and the CVaR epoch the members, in another order than the
-plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s. The
+plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s, and
+with its shift update (#3's fused and split routes) 1e-5 on d' and on s'
+1e-5 x max|z| plus the final bisection bracket's width (the sums over the
+clusters run in another order, so nu may move by about a bracket). The
 CVaR epoch over K identical members is kernel #1 to 1e-6 (they share their
 device code, so bitwise is expected); the epochs with the bisection's early
 exit are their fixed-count builds bit for bit. The epochs' row-group layout
@@ -231,7 +234,7 @@ def test_identical_members_ens_kernel_is_kernel_1(cuda_device, K):
     assert (ens - plain).abs().max().item() <= 1e-6
 
 
-def _joint(rows, seed, device):
+def _joint(rows, seed, device, H=H):
     g = torch.Generator().manual_seed(seed)
 
     def u(*shape):
@@ -267,11 +270,163 @@ def test_joint_kernel_matches_plain_on_card(cuda_device, rows):
     assert bool((d[::4] == 0).all())          # emptied budgets: box {0}
 
 
+def _joint_s(B, n, seed, device, H=H):
+    """B rollouts of n clusters: ``_joint``'s rows (every fourth budget
+    emptied by its shift), the shift bounds at a mobility per rollout
+    (rollout 1 at 0: lo_s = ub_s = 0) and lr_s per rollout. Returns the
+    kernel's operands and the plain version's, (B, n, .)."""
+    g = torch.Generator().manual_seed(seed + 1)
+    args = _joint(B * n, seed, "cpu", H)
+    tau = args[5]
+    mob = 0.1 + 0.5 * torch.rand(B, 1, generator=g)
+    if B > 1:
+        mob[1] = 0.0
+    mob = mob.repeat_interleave(n, 0)
+    lo_s, ub_s = -mob * tau, mob * tau
+    lr_s = 0.002 + 0.004 * torch.rand(B, 1, generator=g)
+    kern = [x.to(device).contiguous() for x in (*args, lo_s, ub_s, lr_s)]
+    plain = [x.reshape(B, n, x.shape[-1]) for x in kern[:-1]] + [kern[-1]]
+    return kern, plain
+
+
+def _check_joint_s(B, n, d, s2, nu, plain):
+    """d' and s' against ``ref.joint_step_s_arrays``; s' in its box and
+    conserving as closely as the plain version: both residuals are the
+    rounding of sums over n clusters, so the kernel's may exceed twice the
+    plain version's by n ulp of max|z|. Returns the bracket width."""
+    wd, ws = ref.joint_step_s_arrays(*plain, drop_limit=0.8)
+    _, g_s = ref.joint_step_arrays(*plain[:15], drop_limit=0.8)
+    z = plain[1][..., 0] - plain[-1] * g_s[..., 0]
+    width = nu[:, 1].max().item()
+    torch.cuda.synchronize()
+    assert (d.reshape(wd.shape) - wd).abs().max().item() <= 1e-5
+    s2 = s2.reshape(B, n)
+    assert (s2 - ws[..., 0]).abs().max().item() <= \
+        1e-5 * z.abs().max().item() + width
+    lo_s, ub_s = plain[15][..., 0], plain[16][..., 0]
+    assert bool(((s2 >= lo_s) & (s2 <= ub_s)).all())
+    assert s2.sum(-1).abs().max().item() <= \
+        2 * ws.sum(-2).abs().max().item() + n * 2 ** -24 * z.abs().max().item()
+    if B > 1:
+        assert not s2[1].any()            # mobility 0: s' exactly 0
+    return width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hh", (1, 7, 24, 32))
+@pytest.mark.parametrize("B,n", ((1, 1), (3, 31), (2, 129), (28, 512),
+                                 (1, 2048)))
+def test_fused_joint_route_matches_plain_on_card(cuda_device, B, n, Hh):
+    kern, plain = _joint_s(B, n, 100 * B + n, cuda_device, Hh)
+    route, C, R = kernel.joint_plan(n)
+    assert route == "fused"
+    nu = torch.full((B * C, 2), float("nan"), device=cuda_device)
+    before = (kernel.joint_step_cuda.launches,
+              dict(kernel.joint_step_cuda.routes),
+              kernel.s_project_cuda.launches)
+    d, s2 = kernel.joint_step_s_cuda(*kern, n=n, drop_limit=0.8, nu_out=nu)
+    assert kernel.joint_step_cuda.launches == before[0] + 1
+    assert kernel.joint_step_cuda.routes == {
+        "fused": before[1]["fused"] + 1, "split": before[1]["split"]}
+    assert kernel.s_project_cuda.launches == before[2]
+    _check_joint_s(B, n, d, s2, nu, plain)
+    # every block of a rollout's cluster found the same nu, bit for bit
+    bits = nu[:, 0].view(torch.int32).reshape(B, C)
+    assert torch.equal(bits, bits[:, :1].expand(B, C))
+
+
+@pytest.mark.cuda
+def test_split_joint_route_matches_plain_on_card(cuda_device):
+    """Past one cluster's rows (n = 3,000) the wrapper takes the split
+    route: the step's kernel, then ``s_project``; at n = 512 the two called
+    directly."""
+    B, n = 2, 3000
+    kern, plain = _joint_s(B, n, 7, cuda_device)
+    assert kernel.joint_plan(n) == ("split", 0, 0)
+    nu = torch.empty(B, 2, device=cuda_device)
+    before = (dict(kernel.joint_step_cuda.routes),
+              kernel.s_project_cuda.launches)
+    d, s2 = kernel.joint_step_s_cuda(*kern, n=n, drop_limit=0.8, nu_out=nu)
+    assert kernel.joint_step_cuda.routes == {
+        "fused": before[0]["fused"], "split": before[0]["split"] + 1}
+    assert kernel.s_project_cuda.launches == before[1] + 1
+    _check_joint_s(B, n, d, s2, nu, plain)
+
+    B, n = 3, 512
+    kern, plain = _joint_s(B, n, 8, cuda_device)
+    nu = torch.empty(B, 2, device=cuda_device)
+    d, g_s = kernel.joint_step_cuda(*kern[:15], drop_limit=0.8)
+    s2 = kernel.s_project_cuda(kern[1], g_s, kern[17], kern[15], kern[16],
+                               n=n, nu_out=nu)
+    _check_joint_s(B, n, d, s2, nu, plain)
+
+
+@pytest.mark.cuda
+def test_fused_and_split_joint_routes_agree(cuda_device):
+    """At the slice path's 28 x 512 the two routes give the same d' bit for
+    bit (one device function) and s' within the final bracket's width."""
+    B, n = 28, 512
+    kern, _ = _joint_s(B, n, 11, cuda_device)
+    nu_f = torch.empty(B * 4, 2, device=cuda_device)
+    nu_s = torch.empty(B, 2, device=cuda_device)
+    d_f, s_f = kernel.joint_step_s_cuda(*kern, n=n, drop_limit=0.8,
+                                        nu_out=nu_f)
+    d_s, g_s = kernel.joint_step_cuda(*kern[:15], drop_limit=0.8)
+    s_s = kernel.s_project_cuda(kern[1], g_s, kern[17], kern[15], kern[16],
+                                n=n, nu_out=nu_s)
+    torch.cuda.synchronize()
+    assert torch.equal(d_f.view(torch.int32), d_s.view(torch.int32))
+    width = max(nu_f[:, 1].max().item(), nu_s[:, 1].max().item())
+    assert (s_f - s_s).abs().max().item() <= width
+
+
+@pytest.mark.cuda
+def test_joint_routes_early_exit_is_the_fixed_count(cuda_device):
+    """Both routes built with the bisections' early exit (shipped) and
+    without (``PGD_EARLY_EXIT=0``) give the same bits."""
+    B, n = 5, 300
+    kern, _ = _joint_s(B, n, 13, cuda_device)
+    out = {}
+    entries = ("joint_step_s", "joint_step", "s_project")
+    try:
+        for name, defs in (("shipped", ()),
+                           ("fixed", ("PGD_EARLY_EXIT=0",))):
+            for entry in entries:
+                kernel._libs[entry] = kernel.variant(entry, defs)
+            d_f, s_f = kernel.joint_step_s_cuda(*kern, n=n, drop_limit=0.8)
+            d_s, g_s = kernel.joint_step_cuda(*kern[:15], drop_limit=0.8)
+            s_s = kernel.s_project_cuda(kern[1], g_s, kern[17], kern[15],
+                                        kern[16], n=n)
+            torch.cuda.synchronize()
+            out[name] = [x.view(torch.int32)
+                         for x in (d_f, s_f, d_s, g_s, s_s)]
+    finally:
+        for entry in entries:
+            kernel._libs.pop(entry, None)
+    assert all(torch.equal(a, b) for a, b in zip(out["shipped"],
+                                                  out["fixed"]))
+
+
+@pytest.mark.cuda
+def test_fused_joint_route_all_infeasible_rollout(cuda_device):
+    """A rollout whose every budget is emptied by its shift: each row's box
+    is {0}, so d' is 0 there; s' still conserves in its box."""
+    B, n = 3, 200
+    kern, plain = _joint_s(B, n, 17, cuda_device)
+    rows = slice(2 * n, 3 * n)
+    kern[1][rows] = -kern[5][rows]        # plain[1] is a view of kern[1]
+    nu = torch.empty(B * 2, 2, device=cuda_device)
+    d, s2 = kernel.joint_step_s_cuda(*kern, n=n, drop_limit=0.8, nu_out=nu)
+    _check_joint_s(B, n, d, s2, nu, plain)
+    assert not d[rows].any()
+
+
 @pytest.mark.cuda
 def test_joint_solve_with_members_goes_through_the_kernels(cuda_device):
     """solve_joint and the CVaR solve after it, on the card: 20 launches
-    of kernel #1 (the warm start), 8 x 25 of the joint step and 20 of the
-    CVaR epoch, and the cpu run of the same problem agrees."""
+    of kernel #1 (the warm start), 8 x 25 of the joint step (all on its
+    fused route) and 20 of the CVaR epoch, and the cpu run of the same
+    problem agrees."""
     from repro_torch.core import risk, spatial
     p = vcc.synthetic_problem(n=16, seed=3, device="cpu")
     p = dataclasses.replace(p, eta=p.eta * torch.where(
@@ -281,6 +436,7 @@ def test_joint_solve_with_members_goes_through_the_kernels(cuda_device):
     counts = (kernel.pgd_epoch_cuda, kernel.joint_step_cuda,
               kernel.pgd_epoch_ens_cuda)
     before = [c.launches for c in counts]
+    routes = dict(kernel.joint_step_cuda.routes)
     out = {}
     for dev in (cuda_device, "cpu"):
         sol, tau_j, s, _ = spatial.solve_joint(p, 0.3, device=dev)
@@ -289,6 +445,8 @@ def test_joint_solve_with_members_goes_through_the_kernels(cuda_device):
                                   .to(dev), 0.5)
         out[str(dev)] = (s, vcc.solve_vcc(pe, device=dev).delta)
     assert [c.launches - b for c, b in zip(counts, before)] == [20, 200, 20]
+    assert kernel.joint_step_cuda.routes == {"fused": routes["fused"] + 200,
+                                             "split": routes["split"]}
     (s_gpu, d_gpu), (s_cpu, d_cpu) = out["cuda"], out["cpu"]
     assert (s_gpu.cpu() - s_cpu).abs().max().item() <= 1e-3 * \
         p.tau.abs().max().item()
