@@ -53,6 +53,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    batch under ``joint_spatial=False``, counted apart), a joint step's
    host time on the fused and the split route and, off the path, the
    eager projection's, and one profiled day with its launch count;
+5b. closed-loop path, the paper's day re-planned each hour:
+   ``SimConfig(streaming=True)`` (the open loop) and then
+   ``SimConfig(streaming=True, mpc=True)`` (the closed loop) over
+   ``forecast_bust_library(7)`` x seeds 0-3 (12 rollouts, 6,144 rows) for
+   7 days at the same fleet size, with exact launches of #1 (140 and 476:
+   20 day-solve epochs a day, and 48 suffix epochs with mpc) and none of
+   #2-#5; every day finite values, the queue conserved over the horizon,
+   the enforced curve's hour 0 the gated plan's and the day solve's
+   conservation and bounds; the recourse table, the share of cluster-hours
+   on which the enforced curve left the plan, the per-rollout state bytes
+   against the rescan state's, a closed-loop day's wall time and its
+   24-hour loop's share, #1 at the closed loop's suffix boxes of hours 1,
+   12, 23 and 24 against its plain version (pinned entries bit for bit)
+   with one suffix epoch timed, and one profiled closed-loop day;
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
    then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
@@ -61,9 +75,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    full-width check of a decode step's logits against the prefill of the
    same tokens; one profiled Zamba2 prefill (the device's busy share and
    #5's share of it) and one profiled Zamba2 decode step;
-7. the golden configuration, and the slice configuration at golden size,
-   on the card (kernels) against the CPU (plain versions), within the
-   parity tests' end-to-end tolerances; at golden size the slice's best-of
+7. the golden configuration, the slice configuration at golden size and
+   the streaming closed loop (``streaming=True, mpc=True``) at golden size
+   over ``forecast_bust_library(3)``, on the card (kernels) against the
+   CPU (plain versions), within the parity tests' end-to-end tolerances;
+   at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
    and the serving smoke configs in float32, cuda against cpu (logits of
    prefill and 4 decode steps, greedy tokens);
@@ -1433,6 +1449,343 @@ def eager_projections():
         pgd_ref.project_row = plain
 
 
+# ------------------------------------------------ phase 5b: closed loop
+
+# forecast_bust_library's 3 scenarios x 4 seeds x 512 clusters
+CL_DAYS = 7
+CL_ROLLOUTS = 3 * len(MAIN_SEEDS)
+CL_ROWS = CL_ROLLOUTS * MAIN_CLUSTERS
+SUFFIX_ROUNDS, SUFFIX_STEPS = 2, 8     # solve_vcc_suffix's schedule
+SUFFIX_HOURS = (1, 12, 23, 24)         # re-solves whose boxes #1 is held at
+# the per-rollout state bytes at the closed loop's fleet (512 clusters, 16
+# zones, hist_days 35), counted from the leaf shapes: the streaming carry's
+# 979 float32 a cluster (usage ring 672, hour-of-week levels 168, rings
+# 35 + 28 + 21, the rest 55) against the seven hist_* windows' 3,465 a
+# cluster and carbon_hist's 16 x 35 x 24
+COUNTED_PRED_BYTES = 979 * 4 * MAIN_CLUSTERS
+COUNTED_HIST_BYTES = 3465 * 4 * MAIN_CLUSTERS + 16 * 35 * 24 * 4
+
+
+def closed_loop_config(**kw):
+    from repro_torch import sim
+    base = dict(n_clusters=MAIN_CLUSTERS, n_campuses=64, n_zones=16,
+                pds_per_cluster=2, hist_days=35, streaming=True)
+    return sim.SimConfig(**{**base, **kw})
+
+
+def phase_closed_loop(card):
+    """The paper's closed-loop CICS day at full width: streaming prediction
+    with the open loop, then with intra-day MPC recourse, on the same
+    forecast-busting batch. Exact launches of #1 (20 a day open, 68
+    closed), and every day: finite values, the queue conserved over the
+    horizon, the enforced curve's hour 0 the gated plan's, and the day
+    solve's conservation and bounds. Then #1 at the closed loop's real
+    suffix boxes, the state bytes, the recourse table and a profiled
+    closed-loop day. Returns #1's record additions."""
+    from repro_torch import sim
+    from repro_torch.core import mpc
+    scenarios = sim.forecast_bust_library(CL_DAYS)
+    names = [sc.name for sc in scenarios]
+    S = len(MAIN_SEEDS)
+    cfg_open, cfg_closed = closed_loop_config(), closed_loop_config(mpc=True)
+    t0 = time.perf_counter()
+    params = sim.build_batch(cfg_open, scenarios, MAIN_SEEDS, CL_DAYS)
+    torch.cuda.synchronize()
+    B = len(scenarios) * S
+    if B * cfg_open.n_clusters != CL_ROWS:
+        raise AssertionError(f"closed-loop path has {B * MAIN_CLUSTERS} "
+                             f"kernel rows, expected {CL_ROWS}")
+    print(f"[closed] streaming=True, open loop then mpc=True: "
+          f"{len(scenarios)} scenarios ({', '.join(names)}) x {S} seeds, "
+          f"{CL_DAYS} days, {cfg_open.n_clusters} clusters / "
+          f"{cfg_open.n_campuses} campuses / {cfg_open.n_zones} zones, hist "
+          f"{cfg_open.hist_days} days; kernel rows per launch {CL_ROWS}; "
+          f"params built in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def drive(cfg, label):
+        marks, checks, prev, sums = {}, [], {}, {}
+        spent = [0.0]
+        left = [0, 0]       # cluster-hours off the plan, of all
+        recourse = []
+
+        def on_day(d, state, out):
+            torch.cuda.synchronize()
+            marks[d] = time.perf_counter()
+            if out is None:
+                sums["backlog"] = state.queue.double().sum(-1)
+                sums["arrived"] = torch.zeros_like(sums["backlog"])
+                sums["served"] = torch.zeros_like(sums["backlog"])
+            else:
+                checks.append(check_day(d, out))
+                for name, x in list(out.res.__dict__.items()) + [
+                        ("vcc_curve", out.vcc_curve), ("queue", state.queue)]:
+                    if not torch.isfinite(x).all():
+                        raise AssertionError(f"{label} day {d}: non-finite "
+                                             f"{name}")
+                sums["arrived"] += out.res.arrived.double().sum(-1)
+                sums["served"] += out.res.served.double().sum(-1)
+                lhs = sums["backlog"] + sums["arrived"]
+                rhs = sums["served"] + state.queue.double().sum(-1)
+                if not torch.allclose(lhs, rhs, rtol=1e-4, atol=0):
+                    raise AssertionError(
+                        f"{label} day {d}: backlog + arrivals "
+                        f"{lhs.tolist()} != served + backlog {rhs.tolist()}")
+                gate = prev["state"].shaping_allowed & out.sol.shaped
+                plan = mpc.gated_curve(out.prob, out.sol.delta, out.prob.tau,
+                                       gate, out.prob.capacity)
+                if not torch.allclose(out.vcc_curve[..., 0], plan[..., 0],
+                                      rtol=1e-6, atol=0):
+                    raise AssertionError(f"{label} day {d}: the enforced "
+                                         "curve's hour 0 is not the plan's")
+                off = (out.vcc_curve - plan).abs() > 1e-6 * plan.abs()
+                left[0] += int(off.sum())
+                left[1] += off.numel()
+                if out.recourse is not None:
+                    recourse.append(out.recourse.recourse_frac.mean().item())
+            prev["state"] = state
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - marks[d]
+
+        run = sim.rollout_batch(cfg, CL_DAYS, device="cuda", on_day=on_day)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, ledger, traj = run(params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = read_counts()
+        burn_s = marks[-1] - t0
+        # as the main path counts it (the daily checks included), and
+        # without the checks' own time (each callback's, after its mark)
+        roll_s = t1 - marks[-1]
+        net_s = roll_s - spent[0]
+        worst = tuple(max(ch[i] for ch in checks) for i in range(2))
+        print(f"[closed] {label}: burn-in {burn_s:.3f} s; rollout "
+              f"{roll_s:.3f} s for {CL_DAYS} days "
+              f"({1e3 * roll_s / CL_DAYS:.1f} ms a day); "
+              f"{B * CL_DAYS / roll_s:.3f} fleet-days/s "
+              f"({B * CL_DAYS / net_s:.3f} without the daily checks' "
+              f"{1e3 * spent[0]:.0f} ms; {B} fleets of "
+              f"{cfg.n_clusters} clusters); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches of #1 to #5 {counts}; worst daily conservation "
+              f"residual {worst[0]:.3e}, bound violation {worst[1]:.3e}; "
+              f"queue conserved over the horizon to rtol 1e-4; the enforced "
+              f"curve left the plan on {left[0]} of {left[1]} cluster-hours "
+              f"({100 * left[0] / left[1]:.2f}%)"
+              + (f"; mean recourse_frac a day "
+                 f"{[round(r, 4) for r in recourse]}" if recourse else ""),
+              flush=True)
+        for name, val in list(ledger._asdict().items()) + list(traj.items()):
+            if not torch.isfinite(val).all():
+                raise AssertionError(f"{label}: non-finite values in {name}")
+        return state, ledger, counts, net_s
+
+    _, led_open, counts_open, open_s = drive(cfg_open, "open loop")
+    state, led_closed, counts_closed, closed_s = drive(cfg_closed,
+                                                       "closed loop")
+    want_open = [CL_DAYS * SOLVE_ROUNDS, 0, 0, 0, 0]
+    want_closed = [CL_DAYS * (SOLVE_ROUNDS + 24 * SUFFIX_ROUNDS), 0, 0, 0, 0]
+    if counts_open != want_open or counts_closed != want_closed:
+        raise AssertionError(f"the closed-loop path launched kernels #1 to #5 "
+                             f"{counts_open} (open) and {counts_closed} "
+                             f"(closed) times, expected {want_open} and "
+                             f"{want_closed}")
+    print(f"[closed] the closed loop's day is {closed_s / open_s:.3f}x the "
+          "open loop's (without the checks)", flush=True)
+    print(sim.format_table(sim.mpc_recourse_rows(led_closed, led_open, names,
+                                                 S), sim.MPC_COLUMNS),
+          flush=True)
+    state_bytes(cfg_open, params, state, B)
+    day_ms, loop_ms, captured = timed_closed_day(cfg_closed, params, state)
+    print(f"[closed] one closed-loop day (host clock, synchronized): "
+          f"{day_ms:.1f} ms, of which the 24-hour recourse loop "
+          f"(mpc.mpc_day) {loop_ms:.1f} ms ({100 * loop_ms / day_ms:.1f}%)",
+          flush=True)
+    suffix = suffix_kernel_checks(captured, card)
+    profile_day(cfg_closed, params, state, "profile_closed_loop_day.txt",
+                days=CL_DAYS)
+    return {"launches_closed_loop": counts_closed[0],
+            "launches_open_loop": counts_open[0], **suffix}
+
+
+def state_bytes(cfg, params, state, B):
+    """Per-rollout carried state, streaming against the rescan state of the
+    same fleet and hist_days (one rollout burned in for it)."""
+    import dataclasses
+
+    from repro_torch import sim
+    from repro_torch.core import stages, stats
+    one = stages.map_tensors(lambda t: t[:1], params)
+    rescan = sim.make_init(dataclasses.replace(cfg, streaming=False),
+                           device="cuda")(one)
+    pred = stats.predictor_nbytes(state.pred) // B
+    hist = stats.replaced_hist_nbytes(rescan) \
+        + stats.pytree_nbytes(rescan.carbon_hist)
+    print(f"[closed] state a rollout: streaming {sim.state_nbytes(state, B):,}"
+          f" B, rescan {sim.state_nbytes(rescan):,} B; the carry `pred` "
+          f"{pred:,} B (counted from the leaf shapes: {COUNTED_PRED_BYTES:,}) "
+          f"against the seven hist_* windows and carbon_hist {hist:,} B "
+          f"(counted: {COUNTED_HIST_BYTES:,})", flush=True)
+    if pred != COUNTED_PRED_BYTES or hist != COUNTED_HIST_BYTES:
+        raise AssertionError("the state bytes are not the counted ones")
+
+
+@contextmanager
+def timed_suffix_calls(hours):
+    """Times ``mpc.mpc_day`` (synchronized) and keeps the arguments of the
+    suffix re-solves at ``hours`` while entered."""
+    from repro_torch.core import mpc, vcc
+    day, solve = mpc.mpc_day, vcc.solve_vcc_suffix
+    rec = {"ms": 0.0, "calls": {}}
+
+    def timed_day(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = day(*a, **kw)
+        torch.cuda.synchronize()
+        rec["ms"] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def kept_solve(p, delta0, mu0, hour, **kw):
+        if hour in hours:
+            rec["calls"][hour] = (p, delta0.clone(), mu0.clone())
+        return solve(p, delta0, mu0, hour, **kw)
+
+    mpc.mpc_day, vcc.solve_vcc_suffix = timed_day, kept_solve
+    try:
+        yield rec
+    finally:
+        mpc.mpc_day, vcc.solve_vcc_suffix = day, solve
+
+
+def timed_closed_day(cfg, params, state):
+    """One more closed-loop day on the host clock: its wall ms and the
+    24-hour loop's; and the suffix problems at ``SUFFIX_HOURS``."""
+    from repro_torch import sim
+    from repro_torch.sim import engine
+    step = sim.make_day_step(cfg)
+    xs = engine.day_xs(params, CL_DAYS - 1)
+    step(params, state, xs)          # warm
+    with timed_suffix_calls(SUFFIX_HOURS) as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, xs)
+        torch.cuda.synchronize()
+        day_ms = 1e3 * (time.perf_counter() - t0)
+    return day_ms, rec["ms"], rec["calls"]
+
+
+def suffix_kernel_checks(captured, card):
+    """Kernel #1 at the closed loop's real suffix boxes against its plain
+    version on the same operands. The epoch as the path runs it (8 steps):
+    the elapsed columns and the fully pinned (infeasible) rows come back as
+    ``delta_committed`` bit for bit on both, and the kernel's point is
+    feasible. Each of its 8 steps, one launch at a time along the kernel's
+    own trajectory, within KERNEL_TOL of the plain step: the kernel's own
+    error. The 8-step gap is printed beside the plain version's own gap
+    between the card and the CPU, and its own gap when the prices move
+    one ulp: these boxes' descent (large carried campus duals, a sharp
+    softmax peak) amplifies a step's rounding several times a step, so the
+    epochs' gap measures the conditioning, not the kernel. One suffix epoch
+    timed at the path's rows."""
+    from repro_torch.core import solver, vcc
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    from repro_torch.kernels.vcc_pgd import ref as pgd_ref
+    out = {}
+    for hour in SUFFIX_HOURS:
+        p, delta0, mu0 = captured[hour]
+        lo, ub, feasible = vcc.suffix_bounds(p, delta0, hour)
+        shape = delta0.shape
+        H = shape[-1]
+
+        def flat(x, k):
+            return torch.as_tensor(x, dtype=torch.float32).expand(
+                shape[:-1] + (k,)).reshape(-1, k).contiguous()
+
+        price = p.lambda_p[..., None] + torch.gather(mu0, -1, p.campus)
+        lr = solver.scaled_lr(0.5, p.pi, p.tau, p.eta, p.lambda_e,
+                              p.lambda_p)
+        args = [flat(x, H) for x in (delta0, p.eta, p.pi, p.pow_nom)] \
+            + [flat(p.tau[..., None] / 24.0, 1), flat(price[..., None], 1),
+               flat(lo, H), flat(ub, H), flat(lr, 1)]
+        temp = flat(solver.peak_temperature(p.pow_nom, 0.02)[..., None,
+                                                              None], 1)
+        lame = flat(p.lambda_e[..., None, None], 1)
+
+        def kern(d=args[0], iters=SUFFIX_STEPS):
+            return pgd_kernel.pgd_epoch_cuda(d, *args[1:], temp, lame,
+                                             iters=iters)
+
+        def plain(d=args[0], iters=SUFFIX_STEPS, on=None):
+            a = [x if on is None else x.to(on) for x in
+                 [d, *args[1:], temp, lame]]
+            return pgd_ref.pgd_epoch_ref(*a[:9], temp=a[9], lambda_e=a[10],
+                                         iters=iters)
+
+        got, want = kern(), plain()
+        cpu = plain(on="cpu")
+        torch.cuda.synchronize()
+        d0, rows = args[0], args[0].shape[0]
+        pinned = (torch.arange(H, device=d0.device) < hour)[None, :] \
+            | ~feasible.reshape(-1, 1)
+        pinned = pinned.expand_as(d0)
+        for name, x in (("kernel", got), ("plain", want)):
+            if not torch.equal(x[pinned], d0[pinned]):
+                raise AssertionError(f"suffix hour {hour}: the {name}'s "
+                                     "pinned entries moved")
+        # the rows pinned whole do not conserve: their prefix cannot
+        free = feasible.reshape(-1)
+        resid, viol = conservation(got[free], args[6][free], args[7][free]) \
+            if free.any() else (0.0, 0.0)
+        feasible_or_raise("vcc_pgd_epoch (suffix)", rows, got, args[6],
+                          args[7], resid, viol)
+        # the kernel's own error: one step at a time on its trajectory
+        step_err, d = 0.0, d0
+        for _ in range(SUFFIX_STEPS):
+            nxt = kern(d, 1)
+            step_err = max(step_err, (nxt - plain(d, 1)).abs().max().item())
+            d = nxt
+        err = (got - want).abs().max().item()
+        spread = (want.cpu() - cpu).abs().max().item()
+        # the descent's own amplification: the plain version again, with
+        # the prices one ulp up (the campus duals' last bit)
+        nudged = list(args)
+        nudged[5] = torch.nextafter(args[5], torch.full_like(args[5], 1e9))
+        amp = (pgd_ref.pgd_epoch_ref(*nudged, temp=temp, lambda_e=lame,
+                                     iters=SUFFIX_STEPS) - want
+               ).abs().max().item()
+        print(f"[closed] #1 at the suffix box of hour {hour} ({rows} rows, "
+              f"{int((~feasible).sum())} rows pinned whole, {hour} columns "
+              f"elapsed): pinned entries bit for bit delta_committed on the "
+              f"kernel and the plain version; conservation "
+              f"{resid:.3e}, bound violation {viol:.3e}; one step on the "
+              f"kernel's trajectory, worst of {SUFFIX_STEPS}: "
+              f"max|kernel-plain| {step_err:.3e} (limit {KERNEL_TOL:g}); "
+              f"the {SUFFIX_STEPS}-step epoch: max|kernel-plain| {err:.3e}, "
+              f"the plain version's own card-vs-CPU gap {spread:.3e}, and "
+              f"its gap when the prices move one ulp {amp:.3e}; "
+              f"{SUFFIX_STEPS} single-step launches "
+              f"{'equal' if torch.equal(d, got) else 'differ from'} the "
+              f"epoch's one launch bit for bit", flush=True)
+        if not step_err <= KERNEL_TOL:
+            raise AssertionError(f"suffix hour {hour}: a kernel step "
+                                 "disagrees with the plain step")
+        if hour == 12:
+            ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain)
+            bound_ms, by, _, _ = card.bound(
+                pgd_kernel.epoch_flops(rows, H, SUFFIX_STEPS),
+                pgd_kernel.epoch_bytes(rows, H))
+            print(f"[closed] one suffix epoch ({SUFFIX_STEPS} steps, {rows} "
+                  f"rows): kernel {ms:.4f} ms (device), plain {plain_ms:.4f}"
+                  f" ms; bound {bound_ms:.4f} ms by {by}", flush=True)
+            out.update(suffix_epoch_ms=ms, suffix_plain_ms=plain_ms,
+                       suffix_bound_ms=bound_ms, suffix_bound_by=by,
+                       suffix_rows=rows, suffix_step_max_abs_err=step_err,
+                       suffix_epoch_max_abs_err=err)
+    return out
+
+
 # ------------------------------------------------- phase 6: serving path
 
 SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b")
@@ -1657,18 +2010,23 @@ RTOL_KEYS = ("carbon_kg", "kwh", "cf_carbon_kg", "cf_kwh", "served",
 ATOL_KEYS = ("delayed_cpu_h", "cf_delayed_cpu_h")
 
 
-def golden_rollout(device, slice_path=False):
+def golden_rollout(device, slice_path=False, closed_loop=False):
     """The golden configuration; ``slice_path=True`` runs the slice's
     configuration (joint spatial, 8 members) at golden size over two
-    scenarios of each sweep library instead."""
+    scenarios of each sweep library instead, ``closed_loop=True`` the
+    streaming closed loop (``streaming=True, mpc=True``) over
+    ``forecast_bust_library``."""
     from repro_torch import sim
     kw = dict(joint_spatial=True, n_members=SLICE_MEMBERS) \
-        if slice_path else {}
+        if slice_path else dict(streaming=True, mpc=True) \
+        if closed_loop else {}
     cfg = sim.SimConfig(n_clusters=8, n_campuses=2, n_zones=2,
                         pds_per_cluster=2, hist_days=14, **kw)
     if slice_path:
         scenarios = sim.mobility_sweep_library(GOLDEN_DAYS, (0.0, 0.3)) \
             + sim.risk_sweep_library(GOLDEN_DAYS, (0.5, 0.9))
+    elif closed_loop:
+        scenarios = sim.forecast_bust_library(GOLDEN_DAYS)
     else:
         scenarios = [sim.Scenario("baseline", "nominal grid, nominal fleet"),
                      sim.Scenario("high_carbon_price", "lambda_e x4",
@@ -1715,11 +2073,14 @@ def check_verdicts(label, gpu, cpu):
                                  "was no tie")
 
 
-def phase_cross_device(slice_path=False):
-    label = "golden slice" if slice_path else "golden"
+def phase_cross_device(slice_path=False, closed_loop=False):
+    label = "golden slice" if slice_path else "golden closed loop" \
+        if closed_loop else "golden"
     t0 = time.perf_counter()
-    gpu_state, gpu_led, gpu_best = golden_rollout("cuda", slice_path)
-    cpu_state, cpu_led, cpu_best = golden_rollout("cpu", slice_path)
+    gpu_state, gpu_led, gpu_best = golden_rollout("cuda", slice_path,
+                                                  closed_loop)
+    cpu_state, cpu_led, cpu_best = golden_rollout("cpu", slice_path,
+                                                  closed_loop)
     if slice_path:
         check_verdicts(label, gpu_best, cpu_best)
     gaps = {}
@@ -1759,11 +2120,14 @@ def main():
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
     records[2]["launches_by_route"] = counts[5]
     records[5]["launches"] = counts[6]
+    # #1's launches and its suffix epoch on the closed-loop path
+    records[0].update(phase_closed_loop(card))
     (records[3]["launches"], records[4]["launches"]), \
         records[3]["launches_by_route"], records[4]["launches_by_route"] = \
         phase_serve()
     phase_cross_device()
     phase_cross_device(slice_path=True)
+    phase_cross_device(closed_loop=True)
     phase_serve_golden()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

@@ -8,8 +8,9 @@ fields as a dict), become the port's tuples on ``device``:
 * other integers -> int64, booleans stay bool, floats -> float32.
 
 The parity tests use these to feed both sides identical inputs stage by
-stage. Fields of later slices (the intraday channels, the streaming carry)
-must be absent or None.
+stage. The intraday hour channels and the streaming carry (``pred``, a
+``PredictorState`` with its nested ``DevMoments`` / ``EWMoments``) come
+across when present; None stays None.
 
 ``model_params_from_numpy`` carries a JAX model's parameter pytree (as
 numpy, layers stacked on leading axes for ``lax.scan``) into the port's
@@ -22,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core import stages, vcc
+from repro_torch.core import stages, stats, vcc
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -36,36 +37,52 @@ def tensor(x, device=None) -> torch.Tensor:
 
 
 def _tree(x, device):
+    if x is None:
+        return None
     if isinstance(x, Mapping):
         return {k: _tree(v, device) for k, v in x.items()}
     return tensor(x, device)
 
 
-def _fields(tree, cls, later=()):
+def _fields(tree, cls):
     if hasattr(tree, "_asdict"):
         tree = tree._asdict()
     elif not isinstance(tree, Mapping):
         tree = {k: getattr(tree, k) for k in vars(tree)}
-    for name in later:
-        if tree.get(name) is not None:
-            raise NotImplementedError(f"{cls.__name__}.{name} is not ported "
-                                      "yet")
-    return {k: tree[k] for k in cls._fields}
+    # a field with a default (None) may be absent; every other must be there
+    return {k: tree.get(k) if k in cls._field_defaults else tree[k]
+            for k in cls._fields}
 
 
 def params_from_numpy(tree, device=None) -> stages.SimParams:
     """The JAX ``SimParams`` (nested dict of numpy arrays) -> the port's."""
-    leaves = _fields(tree, stages.SimParams,
-                     later=("arrival_hour_scale", "carbon_hour_scale"))
-    return stages.SimParams(**{k: _tree(v, device)
-                               for k, v in leaves.items()})
+    return stages.SimParams(**{k: _tree(v, device) for k, v in
+                               _fields(tree, stages.SimParams).items()})
+
+
+# the PredictorState fields that nest moments, and their port types
+_MOMENTS = {"uif_dev": stats.DevMoments, "flex_dev": stats.DevMoments,
+            "res_dev": stats.DevMoments, "ratio": stats.EWMoments}
+
+
+def predictor_from_numpy(tree, device=None) -> stats.PredictorState:
+    """The JAX ``stats.PredictorState`` (a NamedTuple or dict of numpy
+    arrays, its moments nested the same way) -> the port's."""
+    leaves = _fields(tree, stats.PredictorState)
+    return stats.PredictorState(**{
+        k: _MOMENTS[k](**{f: tensor(x, device) for f, x in
+                          _fields(v, _MOMENTS[k]).items()})
+        if k in _MOMENTS else tensor(v, device) for k, v in leaves.items()})
 
 
 def state_from_numpy(tree, device=None) -> stages.SimState:
-    """The JAX rescan ``SimState`` (dict of numpy arrays) -> the port's."""
-    leaves = _fields(tree, stages.SimState, later=("pred",))
-    return stages.SimState(**{k: _tree(v, device)
-                              for k, v in leaves.items()})
+    """The JAX ``SimState`` (dict of numpy arrays; streaming or rescan) ->
+    the port's."""
+    leaves = _fields(tree, stages.SimState)
+    pred = leaves.pop("pred")
+    return stages.SimState(
+        **{k: _tree(v, device) for k, v in leaves.items()},
+        pred=None if pred is None else predictor_from_numpy(pred, device))
 
 
 def problem_from_numpy(tree, device=None) -> vcc.VCCProblem:

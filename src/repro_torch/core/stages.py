@@ -6,7 +6,9 @@ Every simulated day is the same pipeline (paper Fig. 4/5):
                     intensity forecast per zone
   power_stage     — refit PD piecewise-linear power models on history
   forecast_stage  — day-ahead U_IF(h), T_UF(d), T_R(d), R(h), trailing
-                    error quantiles -> Theta, alpha (eq. 3)
+                    error quantiles -> Theta, alpha (eq. 3); with
+                    ``streaming`` from the O(1) ``stats.PredictorState``
+                    carry instead of the history windows
   optimize_stage  — greedy spatial pre-shift, then the fleetwide VCC solve
                     (eq. 4) through the fused PGD kernel; or the joint
                     spatio-temporal solve (``joint_spatial``); with
@@ -15,17 +17,21 @@ Every simulated day is the same pipeline (paper Fig. 4/5):
                     ``SimParams.risk_beta``
   (SLO gate)      — paused clusters get VCC = machine capacity
   observe_stage   — Borg-like admission on ACTUAL load, shaped + unshaped
-                    counterfactual
+                    counterfactual; with ``mpc`` the hourly recourse loop
+                    (``core.mpc``) re-plans the remaining hours as they
+                    realize
   slo_stage       — violation detection + shaping-pause feedback
 
-The port runs rescan forecasting, with or without the joint spatial solve
-and forecast ensembles; ``make_day_step`` raises on streaming, telemetry and
-MPC, which are not ported.
+The port runs rescan or streaming forecasting, the open or the closed
+(MPC) loop, with or without the joint spatial solve and (rescan only)
+forecast ensembles; ``make_day_step`` raises on telemetry, which is not
+ported.
 
 Batching: every leaf of ``SimParams`` and ``SimState`` carries a leading
 (scenario x seed) batch axis B, in place of the reference's ``vmap``; the
 rolling history windows are (B, n, H[, 24]) and ``roll`` shifts axis 2.
-Per-rollout scalars (day, prices, gamma, mobility) have shape (B,).
+Per-rollout scalars (day, prices, gamma, mobility) have shape (B,), so the
+rollouts of a batch may sit on different days.
 """
 from __future__ import annotations
 
@@ -36,8 +42,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import (admission, carbon, forecast, power, prng,
-                              risk, slo, solver, spatial, vcc)
+from repro_torch.core import (admission, carbon, forecast, mpc, power,
+                              prng, risk, slo, solver, spatial, stats, vcc)
 
 f32 = torch.float32
 hour_sum = admission.hour_sum
@@ -183,11 +189,21 @@ class SimParams(NamedTuple):
     cap_scale: torch.Tensor           # (B, days, n) capacity multiplier
     arrival_scale: torch.Tensor       # (B, days, n) flexible-demand mult.
     campus_scale: torch.Tensor        # (B, days, m) campus limit scale
+    # intraday forecast-busting channels (the scenarios' Intraday*
+    # perturbations): hourly multipliers on the ACTUALS, applied after the
+    # day-ahead forecasts are drawn; None = no channel
+    arrival_hour_scale: Optional[torch.Tensor] = None   # (B, days, 24)
+    carbon_hour_scale: Optional[torch.Tensor] = None    # (B, days, 24)
 
 
 class SimState(NamedTuple):
-    """Day-cycle state (the rollout carry), batch axis B first. The seven
-    rolling history windows hold H days, oldest first."""
+    """Day-cycle state (the rollout carry), batch axis B first.
+
+    Rescan mode carries the seven rolling history windows (H days, oldest
+    first) and ``pred=None``. Streaming mode carries the
+    ``stats.PredictorState`` in ``pred``; the ``hist_*`` leaves are then
+    zero-length stubs (B, n, 0[, 24]), never read, and ``carbon_hist``
+    keeps the trailing 7 days that the carbon forecast reads."""
     day: torch.Tensor                 # (B,) int64
     campus: torch.Tensor              # (B, n) int64
     zmap: torch.Tensor                # (B, n) int64 zone of cluster
@@ -208,6 +224,7 @@ class SimState(NamedTuple):
     violation_days: torch.Tensor      # (B, n) int64
     observed_days: torch.Tensor       # (B, n) int64
     shaping_allowed: torch.Tensor     # (B, n) bool
+    pred: Optional[stats.PredictorState] = None   # streaming carry
 
 
 class StepOut(NamedTuple):
@@ -215,17 +232,22 @@ class StepOut(NamedTuple):
     res: admission.DayResult          # shaped admission result
     cf: admission.DayResult           # unshaped counterfactual result
     sol: vcc.VCCSolution
-    vcc_curve: torch.Tensor           # (B, n, 24) post-SLO-gate VCC
+    vcc_curve: torch.Tensor           # (B, n, 24) post-SLO-gate VCC (with
+    #                                   ``mpc`` the hour-by-hour ENFORCED
+    #                                   curve, not the 00:00 plan)
     fc: Dict[str, torch.Tensor]       # forecast dict
     prob: vcc.VCCProblem              # problem actually optimized
     eta_act: torch.Tensor             # (B, n, 24) actual intensity
     best: Optional[spatial.BestOf] = None  # joint solve's call (joint only)
+    recourse: Optional[mpc.MPCDiag] = None  # recourse diagnostics (mpc only)
 
 
 @dataclass(frozen=True)
 class StageConfig:
-    """Knobs of the staged day cycle. ``streaming``, ``telemetry`` and
-    ``mpc`` must keep their defaults (``make_day_step`` raises)."""
+    """Knobs of the staged day cycle. ``streaming``: the O(1)
+    ``stats.PredictorState`` carry instead of the history rescans (not with
+    ``n_members > 1``); ``mpc``: the hourly recourse loop of ``core.mpc``;
+    ``telemetry`` must keep its default (``make_day_step`` raises)."""
     slo_margin: float = 1.0
     slo_pause_days: int = 7
     joint_spatial: bool = False
@@ -335,6 +357,12 @@ def forecast_stage(hist_uif, hist_flex_daily, hist_res_daily, hist_usage,
             "uif_q": uif_q}
 
 
+def forecast_stage_streaming(pred: stats.PredictorState, day, gamma):
+    """O(1) counterpart of ``forecast_stage``: the same forecast dict from
+    the ``stats.PredictorState`` carry. day/gamma (B,)."""
+    return stats.streaming_forecast(pred, day, gamma)
+
+
 def build_problem_arrays(fc, eta_fc, power_fn, slope_fn, queue, u_pow_cap,
                          capacity, campus, campus_limit, lambda_e, lambda_p
                          ) -> vcc.VCCProblem:
@@ -386,23 +414,54 @@ def optimize_stage(fc, eta_fc, model: PowerModel, queue, u_pow_cap,
     return prob, vcc.solve_vcc(prob, device=dev), None
 
 
-def observe_stage(truth, day, day_key, vcc_curve, cap_day, arr_scale,
-                  queue, cf_queue, power_fn, intensity,
-                  allowance_frac: float = 0.25):
-    """Sample the day's true load and run shaped + counterfactual
-    admission. Returns (shaped DayResult, counterfactual DayResult, u_if,
-    arrivals)."""
+def sample_day_truth(truth, day, day_key, cap_day, arr_scale,
+                     arr_hour_scale=None):
+    """Sample the day's actual load: (u_if, arrivals, ratio_true), each
+    (B, n, 24). ``arr_hour_scale`` (B, 24), if given: the intraday
+    forecast-busting multiplier on the arrivals, applied to the actuals
+    after the forecasts were issued."""
     u_if = sample_inflexible(prng.fold_in(day_key, 2), truth, day)
     u_if = torch.minimum(u_if, 0.98 * cap_day[..., None])   # outage derates
     arrivals = sample_arrivals(prng.fold_in(day_key, 3), truth, day)
     arrivals = arrivals * arr_scale[..., None]
-    ratio_true = true_ratio(truth, u_if + arrivals)
+    if arr_hour_scale is not None:
+        arrivals = arrivals * arr_hour_scale[:, None, :]
+    return u_if, arrivals, true_ratio(truth, u_if + arrivals)
+
+
+def observe_stage(truth, day, day_key, vcc_curve, cap_day, arr_scale,
+                  queue, cf_queue, power_fn, intensity,
+                  allowance_frac: float = 0.25, arr_hour_scale=None):
+    """Sample the day's true load and run shaped + counterfactual
+    admission. Returns (shaped DayResult, counterfactual DayResult, u_if,
+    arrivals)."""
+    u_if, arrivals, ratio_true = sample_day_truth(
+        truth, day, day_key, cap_day, arr_scale, arr_hour_scale)
     res = admission.run_day(vcc_curve, u_if, arrivals, ratio_true, cap_day,
                             queue, power_fn, intensity, allowance_frac)
     unshaped = (cap_day[..., None] * 10.0).expand_as(vcc_curve)
     cf = admission.run_day(unshaped, u_if, arrivals, ratio_true, cap_day,
                            cf_queue, power_fn, intensity, allowance_frac)
     return res, cf, u_if, arrivals
+
+
+def observe_stage_mpc(truth, day, day_key, prob, sol, fc, gate, cap_day,
+                      arr_scale, queue, cf_queue, power_fn, intensity,
+                      allowance_frac: float = 0.25, arr_hour_scale=None):
+    """Closed-loop counterpart of ``observe_stage``: the same sampled truth
+    and unshaped counterfactual, but the shaped run is the hourly recourse
+    loop (``mpc.mpc_day``) instead of admission under the 00:00 curve.
+    Returns (res, cf, u_if, arrivals, enforced curve (B, n, 24),
+    stats.HourAccum, mpc.MPCDiag)."""
+    u_if, arrivals, ratio_true = sample_day_truth(
+        truth, day, day_key, cap_day, arr_scale, arr_hour_scale)
+    res, enforced, acc, diag = mpc.mpc_day(
+        prob, sol, fc["tuf"], gate, cap_day, u_if, arrivals, ratio_true,
+        queue, power_fn, intensity, allowance_frac=allowance_frac)
+    unshaped = (cap_day[..., None] * 10.0).expand_as(enforced)
+    cf = admission.run_day(unshaped, u_if, arrivals, ratio_true, cap_day,
+                           cf_queue, power_fn, intensity, allowance_frac)
+    return res, cf, u_if, arrivals, enforced, acc, diag
 
 
 def slo_stage(slo_state, slo_cfg: slo.SLOConfig, daily_reservations,
@@ -418,13 +477,19 @@ def make_day_step(cfg: StageConfig):
     """One CICS day: forecast -> optimize -> shape -> observe -> SLO.
 
     Returns step(params, state, xs) -> (state', StepOut) where xs holds this
-    day's scenario-schedule slices (B, z) / (B, n) / (B, m)."""
-    for name in ("streaming", "telemetry", "mpc"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"StageConfig.{name}=True is not ported yet")
+    day's scenario-schedule slices (B, z) / (B, n) / (B, m), and (B, 24)
+    for the intraday channels when the scenarios carry them."""
+    if cfg.telemetry:
+        raise NotImplementedError("StageConfig.telemetry=True is not ported "
+                                  "yet")
     if cfg.n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {cfg.n_members}")
+    if cfg.streaming and cfg.n_members > 1:
+        raise ValueError(
+            "StageConfig.streaming=True does not support forecast "
+            "ensembles (n_members > 1): risk.day_ensembles bootstraps "
+            "whole days of the hist_uif_pred/hist_uif error history, "
+            "which the streaming state no longer carries")
     slo_cfg = slo.SLOConfig(margin=cfg.slo_margin,
                             pause_days=cfg.slo_pause_days)
 
@@ -433,15 +498,25 @@ def make_day_step(cfg: StageConfig):
         truth = params.truth
         day_key = prng.fold_in(params.key, state.day)
         cap_day = truth["capacity"] * xs["cap_scale"]
-        model = power_stage(state.hist_usage, params.lam, truth["capacity"],
+        # power fit and load forecast; streaming: over the carry (its usage
+        # ring IS the 28-day window the rescan fit slices)
+        usage = state.pred.usage_ring if cfg.streaming else state.hist_usage
+        model = power_stage(usage, params.lam, truth["capacity"],
                             pd_truth(params), prng.fold_in(day_key, 1))
-        fc = forecast_stage(
-            state.hist_uif, state.hist_flex_daily, state.hist_res_daily,
-            state.hist_usage, state.hist_res, state.hist_tr_pred,
-            state.hist_uif_pred, params.gamma)
+        if cfg.streaming:
+            fc = forecast_stage_streaming(state.pred, state.day, params.gamma)
+        else:
+            fc = forecast_stage(
+                state.hist_uif, state.hist_flex_daily, state.hist_res_daily,
+                state.hist_usage, state.hist_res, state.hist_tr_pred,
+                state.hist_uif_pred, params.gamma)
         act_z, fc_z = carbon_stage(params.zone, state.carbon_hist,
                                    prng.fold_in(day_key, 4),
                                    xs["green_scale"], xs["coal_scale"])
+        # intraday forecast-busting: the ACTUAL intensity moves after the
+        # day-ahead forecast is drawn (tomorrow's forecaster sees it)
+        if "carbon_hour_scale" in xs:
+            act_z = act_z * xs["carbon_hour_scale"][:, None, :]
         eta_act = take(act_z, state.zmap)
         eta_fc = take(fc_z, state.zmap)
         # forecast ensembles (K > 1 only: K = 1 is the point-forecast day)
@@ -460,11 +535,23 @@ def make_day_step(cfg: StageConfig):
         gate = state.shaping_allowed & sol.shaped
         vcc_curve = torch.where(gate[..., None], sol.vcc,
                                 cap_day[..., None] * 10.0)
-        res, cf, u_if, _ = observe_stage(
-            truth, state.day, day_key, vcc_curve, cap_day,
-            xs["arrival_scale"], state.queue, state.cf_queue,
-            lambda u: model_power(model, u), eta_act,
-            allowance_frac=cfg.slo_allowance)
+        # real time: admission on the ACTUAL load (+ counterfactual); with
+        # mpc the hourly recourse loop, and the SLO detector sees the
+        # hour-by-hour enforced curve
+        arr_hs = xs.get("arrival_hour_scale")
+        acc = mdiag = None
+        if cfg.mpc:
+            res, cf, u_if, _, vcc_curve, acc, mdiag = observe_stage_mpc(
+                truth, state.day, day_key, prob, sol, fc, gate, cap_day,
+                xs["arrival_scale"], state.queue, state.cf_queue,
+                lambda u: model_power(model, u), eta_act,
+                allowance_frac=cfg.slo_allowance, arr_hour_scale=arr_hs)
+        else:
+            res, cf, u_if, _ = observe_stage(
+                truth, state.day, day_key, vcc_curve, cap_day,
+                xs["arrival_scale"], state.queue, state.cf_queue,
+                lambda u: model_power(model, u), eta_act,
+                allowance_frac=cfg.slo_allowance, arr_hour_scale=arr_hs)
         slo_state = {"crowded_streak": state.crowded_streak,
                      "pause_left": state.pause_left,
                      "violation_days": state.violation_days,
@@ -473,25 +560,40 @@ def make_day_step(cfg: StageConfig):
                                      hour_sum(res.reservations),
                                      hour_sum(vcc_curve), res.unmet,
                                      res.arrived)
+        if cfg.streaming:
+            # absorb the day into the carry (errors pair same-day with the
+            # forecast issued above); with mpc through the hour-grain chain
+            if cfg.mpc:
+                pred = stats.hour_finalize(state.pred, acc, fc, state.day,
+                                           params.gamma)
+            else:
+                pred = stats.predictor_update(
+                    state.pred, fc, state.day, params.gamma, u_if,
+                    res.served, hour_sum(res.reservations),
+                    res.usage_total, res.reservations)
+            carry = dict(pred=pred)
+        else:
+            carry = dict(
+                hist_uif=roll(state.hist_uif, u_if),
+                hist_flex_daily=roll(state.hist_flex_daily, res.served),
+                hist_res_daily=roll(state.hist_res_daily,
+                                    hour_sum(res.reservations)),
+                hist_usage=roll(state.hist_usage, res.usage_total),
+                hist_res=roll(state.hist_res, res.reservations),
+                hist_tr_pred=roll(state.hist_tr_pred, fc["tr"]),
+                hist_uif_pred=roll(state.hist_uif_pred, fc["uif"]))
         new_state = state._replace(
             day=state.day + 1,
-            hist_uif=roll(state.hist_uif, u_if),
-            hist_flex_daily=roll(state.hist_flex_daily, res.served),
-            hist_res_daily=roll(state.hist_res_daily,
-                                hour_sum(res.reservations)),
-            hist_usage=roll(state.hist_usage, res.usage_total),
-            hist_res=roll(state.hist_res, res.reservations),
-            hist_tr_pred=roll(state.hist_tr_pred, fc["tr"]),
-            hist_uif_pred=roll(state.hist_uif_pred, fc["uif"]),
             carbon_hist=roll(state.carbon_hist, act_z),
             queue=res.queue_end,
             cf_queue=cf.queue_end,
             shaping_allowed=allowed,
-            **new_slo,
+            **new_slo, **carry,
         )
         return new_state, StepOut(res=res, cf=cf, sol=sol,
                                   vcc_curve=vcc_curve, fc=fc, prob=prob,
-                                  eta_act=eta_act, best=best)
+                                  eta_act=eta_act, best=best,
+                                  recourse=mdiag)
 
     return step
 
@@ -529,12 +631,20 @@ def burnin_step(params: SimParams, state: SimState) -> SimState:
 
 
 def make_init(n_clusters: int, n_campuses: int, n_zones: int,
-              hist_days: int, device=None):
+              hist_days: int, device=None, streaming: bool = False):
     """init(params) -> burned-in SimState on ``device`` (default
     ``"cuda"``): ``hist_days`` unshaped burn-in days fill the history
     windows, then the campus contracts are set to 97% of the fitted-model
-    campus peak over the last week."""
+    campus peak over the last week.
+
+    With ``streaming`` every estimator of the streaming carry is then
+    warm-started from the burned-in windows (``stats.init_predictor``), the
+    seven ``hist_*`` windows drop to zero-length stubs and ``carbon_hist``
+    to its trailing 7 days: the carried state no longer grows with
+    ``hist_days``."""
     n, m, z, H = n_clusters, n_campuses, n_zones, hist_days
+    if streaming and H < 7:
+        raise ValueError(f"streaming init needs hist_days >= 7, got {H}")
     dev = _device.resolve(device)
 
     def init(params: SimParams) -> SimState:
@@ -570,6 +680,21 @@ def make_init(n_clusters: int, n_campuses: int, n_zones: int,
         upow = model_power(model, state.hist_usage[:, :, -7:].reshape(
             B, n, -1))
         limit = solver.segment_sum(upow.amax(-1), campus, m) * 0.97
-        return state._replace(campus_limit=limit)
+        state = state._replace(campus_limit=limit)
+        if streaming:
+            pred = stats.init_predictor(
+                state.hist_uif, state.hist_flex_daily, state.hist_res_daily,
+                state.hist_usage, state.hist_res, state.hist_tr_pred,
+                state.hist_uif_pred, state.day, params.gamma)
+            state = state._replace(
+                pred=pred,
+                # carbon_stage's forecast reads only the trailing 7 days
+                # (carbon.forecast_day_ahead): the same forecasts
+                carbon_hist=state.carbon_hist[:, :, -stats.WEEK:].clone(),
+                hist_uif=hist(n, 0, 24), hist_flex_daily=hist(n, 0),
+                hist_res_daily=hist(n, 0), hist_usage=hist(n, 0, 24),
+                hist_res=hist(n, 0, 24), hist_tr_pred=hist(n, 0),
+                hist_uif_pred=hist(n, 0, 24))
+        return state
 
     return init

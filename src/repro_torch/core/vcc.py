@@ -18,6 +18,11 @@ batch axes (the scenario x seed batch); ``lambda_e``, ``lambda_p`` and
 ``risk_beta`` then have the batch shape. A problem may carry K day-ahead
 forecast members (``risk.attach_ensemble``); its PGD epoch then descends the
 soft-CVaR member tilt at ``risk_beta`` (the CVaR ensemble kernel).
+
+``solve_vcc_suffix`` is the intra-day re-solve of the MPC recourse loop
+(``core.mpc``): the hours already elapsed are pinned (``suffix_bounds``)
+and a short warm-started schedule of the same fused epoch re-plans the
+rest.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import prng, solver
+from repro_torch.core.admission import hour_sum
 
 f32 = torch.float32
 
@@ -126,6 +132,16 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
     # neutralize infeasible clusters: bounds collapse to {0}
     lo = torch.where(feasible[..., None], lo, 0.0)
     ub = torch.where(feasible[..., None], ub, 0.0)
+    delta, mu = _descend(p, lo, ub, torch.zeros_like(p.eta),
+                         torch.zeros_like(p.campus_limit), inner_iters,
+                         outer_iters, lr, temp_frac, rho)
+    return _solution(p, delta, mu, feasible)
+
+
+def _descend(p: VCCProblem, lo, ub, delta0, mu0, inner_iters, outer_iters,
+             lr, temp_frac, rho):
+    """``outer_iters`` dual-ascent rounds from (delta0, mu0), each one fused
+    epoch of ``inner_iters`` PGD steps in the box [lo, ub]."""
     temp = solver.peak_temperature(p.pow_nom, temp_frac)
     lr_eff = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
 
@@ -138,10 +154,11 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
         return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
                                          rho)
 
-    delta, mu = solver.dual_ascent(inner, dual_update,
-                                   torch.zeros_like(p.eta),
-                                   torch.zeros_like(p.campus_limit),
-                                   outer_iters)
+    return solver.dual_ascent(inner, dual_update, delta0, mu0, outer_iters)
+
+
+def _solution(p: VCCProblem, delta, mu, feasible) -> VCCSolution:
+    """The VCC of ``delta`` (machine capacity where infeasible)."""
     y = cluster_power(p, delta).amax(-1)
     vcc_shaped = (p.u_if + (1.0 + delta) * p.tau[..., None] / 24.0) * p.ratio
     cap = p.capacity[..., None]
@@ -149,6 +166,49 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
                       cap.expand_as(vcc_shaped))
     return VCCSolution(delta=delta, y=y, vcc=vcc, shaped=feasible, mu=mu,
                        objective=objective(p, delta, mu, risk=False))
+
+
+def suffix_bounds(p: VCCProblem, delta_committed, hour: int):
+    """Bounds of the suffix polytope at intra-day ``hour`` (0-24, the same
+    for every rollout): elapsed hours (h < hour) are pinned at the realized
+    deviations ``delta_committed`` (lo == ub), the remaining hours keep the
+    day-ahead box. The exact projection onto {sum_h delta = 0} ∩ [lo, ub]
+    then enforces the tightened conservation of the suffix. A cluster whose
+    realized prefix can no longer be conserved (the box sums do not bracket
+    zero) is pinned to ``delta_committed`` everywhere and keeps its plan.
+    Returns (lo, ub, feasible)."""
+    H = delta_committed.shape[-1]
+    mask = torch.arange(H, device=delta_committed.device) >= hour
+    lo, ub, feasible = delta_bounds(p)
+    lo = torch.where(mask, lo, delta_committed)
+    ub = torch.where(mask, ub, delta_committed)
+    feasible = feasible & (hour_sum(lo) <= 1e-6) & (hour_sum(ub) >= -1e-6)
+    lo = torch.where(feasible[..., None], lo, delta_committed)
+    ub = torch.where(feasible[..., None], ub, delta_committed)
+    return lo, ub, feasible
+
+
+def solve_vcc_suffix(p: VCCProblem, delta0, mu0, hour: int, *,
+                     inner_iters: int = 8, outer_iters: int = 2,
+                     lr: float = 0.5, temp_frac: float = 0.02,
+                     rho: float = 0.2, device=None) -> VCCSolution:
+    """Warm-started intra-day re-solve of the remaining hours' VCC on
+    ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain epochs).
+
+    ``delta0`` (..., n, 24): the current plan with the elapsed columns
+    (h < hour) replaced by the realized deviations; ``mu0``: the campus
+    duals carried from the solve before. The machinery is ``solve_vcc``'s
+    (the fused epoch inside dual ascent) on the suffix box of
+    ``suffix_bounds``, started from (delta0, mu0) and not from zeros, with
+    infeasible rows pinned to ``delta0`` and not collapsed to {0}; the
+    default schedule is 2 rounds x 8 steps against the day solve's
+    20 x 80."""
+    dev = _device.resolve(device)
+    p, delta0, mu0 = p.to(dev), delta0.to(dev), mu0.to(dev)
+    lo, ub, feasible = suffix_bounds(p, delta0, hour)
+    delta, mu = _descend(p, lo, ub, delta0, mu0, inner_iters, outer_iters,
+                         lr, temp_frac, rho)
+    return _solution(p, delta, mu, feasible)
 
 
 def synthetic_problem(n: int = 12, seed: int = 7, n_campuses: int = 2,

@@ -26,9 +26,11 @@ from repro_torch.sim.ledger import DayMetrics, init_ledger, ledger_update
 
 @dataclass(frozen=True)
 class SimConfig:
-    """Static structure (shapes + solver knobs). ``streaming``,
-    ``telemetry`` and ``mpc`` must keep their defaults
-    (``stages.make_day_step`` raises)."""
+    """Static structure (shapes + solver knobs). ``streaming``: the O(1)
+    streaming prediction carry (state independent of ``hist_days``; not
+    with ``n_members > 1``); ``mpc``: intra-day MPC recourse, hourly
+    warm-started suffix re-solves (``core.mpc``); ``telemetry`` must keep
+    its default (``stages.make_day_step`` raises)."""
     n_clusters: int = 16
     n_campuses: int = 4
     n_zones: int = 4
@@ -72,16 +74,22 @@ def make_day_step(cfg: SimConfig):
 def make_init(cfg: SimConfig, device=None):
     """init(params) -> burned-in SimState on ``device`` (default cuda)."""
     return stages.make_init(cfg.n_clusters, cfg.n_campuses, cfg.n_zones,
-                            cfg.hist_days, device=device)
+                            cfg.hist_days, device=device,
+                            streaming=cfg.streaming)
 
 
 def day_xs(params: SimParams, d: int):
-    """Day ``d``'s scenario-schedule slices, each (B, k)."""
-    return {"green_scale": params.green_scale[:, d],
-            "coal_scale": params.coal_scale[:, d],
-            "cap_scale": params.cap_scale[:, d],
-            "arrival_scale": params.arrival_scale[:, d],
-            "campus_scale": params.campus_scale[:, d]}
+    """Day ``d``'s scenario-schedule slices, each (B, k); the intraday
+    hour channels (B, 24) only when the params carry them."""
+    xs = {"green_scale": params.green_scale[:, d],
+          "coal_scale": params.coal_scale[:, d],
+          "cap_scale": params.cap_scale[:, d],
+          "arrival_scale": params.arrival_scale[:, d],
+          "campus_scale": params.campus_scale[:, d]}
+    for k in ("arrival_hour_scale", "carbon_hour_scale"):
+        if getattr(params, k) is not None:
+            xs[k] = getattr(params, k)[:, d]
+    return xs
 
 
 def make_rollout(cfg: SimConfig, days: int, on_day=None):

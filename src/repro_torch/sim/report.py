@@ -1,6 +1,6 @@
 """Reduce batched rollouts into per-scenario summary tables (port of
-``repro.sim.report``: ``scenario_rows``, the mobility- and risk-sweep rows,
-and ``format_table``).
+``repro.sim.report``: ``state_nbytes``, ``scenario_rows``, the mobility-
+and risk-sweep rows, the MPC recourse rows and ``format_table``).
 
 Input: a batched Ledger whose leading axis is scenario-major x seed-minor
 (the layout ``scenarios.build_batch`` produces).
@@ -11,18 +11,27 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core import stats
 from repro_torch.sim.ledger import Ledger, summarize
 
 COLUMNS = ("carbon_saved_pct", "peak_reduction_pct", "flex_within_24h_pct",
            "kwh_saved_pct", "delayed_cpu_h_per_day")
 
 
+def state_nbytes(state, batch: int = 1) -> int:
+    """Per-rollout bytes of a carried ``SimState`` (streaming or rescan);
+    ``batch``: the leading (scenario x seed) extent to divide out."""
+    return stats.pytree_nbytes(state) // max(batch, 1)
+
+
 def scenario_rows(ledgers: Ledger, scenario_names: Sequence[str],
                   n_seeds: int, horizon_days: Optional[int] = None,
-                  initial_backlog=None) -> List[Dict[str, float]]:
+                  initial_backlog=None, state_bytes: Optional[int] = None
+                  ) -> List[Dict[str, float]]:
     """Per-scenario mean +/- std (over seeds, ddof=1) of the ledger
     summaries. ``initial_backlog``: (B,) fleet-total queue at rollout
-    start."""
+    start; ``horizon_days`` and ``state_bytes`` (per-rollout carried state,
+    ``state_nbytes``) tag every row when given."""
     summaries = summarize(ledgers, 0.0 if initial_backlog is None
                           else initial_backlog)
     summaries = {k: v.detach().cpu().double().numpy()
@@ -33,6 +42,8 @@ def scenario_rows(ledgers: Ledger, scenario_names: Sequence[str],
         row: Dict[str, float] = {"scenario": name, "n_seeds": n_seeds}
         if horizon_days is not None:
             row["horizon_days"] = int(horizon_days)
+        if state_bytes is not None:
+            row["state_bytes"] = int(state_bytes)
         for k, v in summaries.items():
             vals = np.asarray(v[sl], dtype=np.float64)
             row[k] = float(vals.mean())
@@ -65,6 +76,33 @@ def mobility_sweep_rows(led_joint: Ledger, led_seq: Ledger,
     return rows
 
 
+MPC_COLUMNS = ("carbon_saved_pct", "carbon_vs_open_pct",
+               "flex_within_24h_pct", "flex24h_vs_open_pp",
+               "delayed_cpu_h_per_day")
+
+
+def mpc_recourse_rows(led_mpc: Ledger, led_open: Ledger,
+                      scenario_names: Sequence[str], n_seeds: int
+                      ) -> List[Dict[str, float]]:
+    """Rows of the intra-day recourse comparison: the ledger summaries of
+    the closed-loop (``SimConfig(mpc=True)``) rollouts, plus deltas against
+    the open-loop rollouts of the same batch. ``carbon_vs_open_pct > 0``
+    means hourly recourse emitted less carbon than the 00:00 plan;
+    ``flex24h_vs_open_pp`` is the within-24h flex service gain in
+    percentage points."""
+    rows = scenario_rows(led_mpc, scenario_names, n_seeds)
+    open_rows = scenario_rows(led_open, scenario_names, n_seeds)
+    for r, q in zip(rows, open_rows):
+        base = max(abs(q["carbon_kg"]), 1e-9)
+        r["carbon_vs_open_pct"] = \
+            100.0 * (q["carbon_kg"] - r["carbon_kg"]) / base
+        r["flex24h_vs_open_pp"] = \
+            r["flex_within_24h_pct"] - q["flex_within_24h_pct"]
+        r["open_carbon_kg"] = q["carbon_kg"]
+        r["open_flex_within_24h_pct"] = q["flex_within_24h_pct"]
+    return rows
+
+
 def risk_sweep_rows(ledgers_by_k: Dict[int, Ledger],
                     scenario_names: Sequence[str], n_seeds: int
                     ) -> List[Dict[str, float]]:
@@ -85,6 +123,8 @@ def format_table(rows: List[Dict[str, float]],
     name_w = max([len("scenario")] + [len(r["scenario"]) for r in rows]) + 2
     headers = {"carbon_saved_pct": "carbonSaved%",
                "carbon_vs_sequential_pct": "vsSeq%",
+               "carbon_vs_open_pct": "vsOpen%",
+               "flex24h_vs_open_pp": "flex24hΔpp",
                "peak_reduction_pct": "peakRed%",
                "flex_within_24h_pct": "flex<24h%",
                "flex_completion_pct": "flexDone%",

@@ -1,12 +1,14 @@
 """Declarative scenario perturbations composable onto the synthetic fleet
-(port of ``repro.sim.scenarios``: the default, mobility-sweep and
-risk-sweep libraries).
+(port of ``repro.sim.scenarios``: the default, mobility-sweep, risk-sweep
+and forecast-bust libraries).
 
 A Scenario = a name + scalar overrides (carbon price, risk, mobility) + a
 tuple of Perturbation objects, each of which edits the numpy multiplier
 schedules (one row per rollout day) that the engine consumes. Composition is
-pure: per-scenario randomness (which clusters an outage hits) is drawn from a
-generator keyed on (seed, crc32(scenario.name)), as in the reference.
+pure: per-scenario randomness (which clusters an outage hits, which hours an
+intraday block covers) is drawn from a generator keyed on (seed,
+crc32(scenario.name)), as in the reference, so it lands where the
+reference's does.
 """
 from __future__ import annotations
 
@@ -115,6 +117,54 @@ class CapacitySqueeze(Perturbation):
         sched["cap_scale"][w] *= self.scale
 
 
+def _hour_channel(sched: Dict[str, np.ndarray], key: str,
+                  days: int) -> np.ndarray:
+    """The intraday (days, 24) multiplier channel ``key``, made at first
+    use: scenarios without intraday perturbations carry none."""
+    if key not in sched:
+        sched[key] = np.ones((days, 24))
+    return sched[key]
+
+
+@dataclass(frozen=True)
+class IntradayCarbonSpike(Perturbation):
+    """Forecast-busting intra-day carbon spike: the ACTUAL zone intensity
+    is scaled by ``scale`` for a ``hour_len``-hour block each day of the
+    window, after the day-ahead forecast is drawn. ``hour_start=None``
+    places the block at random each day (scenario rng)."""
+    scale: float = 1.8
+    hour_len: int = 8
+    hour_start: Optional[int] = None
+
+    def apply(self, sched, rng, cfg):
+        days = sched["cap_scale"].shape[0]
+        ch = _hour_channel(sched, "carbon_hour_scale", days)
+        w = self.window(days)
+        for d in range(w.start, w.stop):
+            h0 = self.hour_start if self.hour_start is not None \
+                else int(rng.integers(5, 24 - self.hour_len))
+            ch[d, h0:min(h0 + self.hour_len, 24)] *= self.scale
+
+
+@dataclass(frozen=True)
+class IntradayDemandSurge(Perturbation):
+    """Forecast-busting intra-day arrival surge: ACTUAL flexible arrivals
+    scale by ``scale`` for a ``hour_len``-hour block each day of the window
+    (a random block a day when ``hour_start=None``)."""
+    scale: float = 1.7
+    hour_len: int = 6
+    hour_start: Optional[int] = None
+
+    def apply(self, sched, rng, cfg):
+        days = sched["cap_scale"].shape[0]
+        ch = _hour_channel(sched, "arrival_hour_scale", days)
+        w = self.window(days)
+        for d in range(w.start, w.stop):
+            h0 = self.hour_start if self.hour_start is not None \
+                else int(rng.integers(5, 24 - self.hour_len))
+            ch[d, h0:min(h0 + self.hour_len, 24)] *= self.scale
+
+
 # ----------------------------------------------------------------- scenario
 
 @dataclass(frozen=True)
@@ -167,9 +217,19 @@ def build_params(cfg: SimConfig, scenario: Scenario, seed: int, days: int,
 def build_batch(cfg: SimConfig, scenarios: Sequence[Scenario],
                 seeds: Sequence[int], days: int, device=None) -> SimParams:
     """Stack (scenario x seed) SimParams along a new leading axis, scenario
-    major: batch index b = i_scenario * len(seeds) + i_seed."""
+    major: batch index b = i_scenario * len(seeds) + i_seed. If any rollout
+    carries an intraday hour channel, the rollouts without it get the
+    neutral all-ones channel (actuals times exactly 1.0)."""
     all_params = [build_params(cfg, sc, seed, days, device=device)
                   for sc in scenarios for seed in seeds]
+    for field in ("arrival_hour_scale", "carbon_hour_scale"):
+        have = [getattr(p, field) for p in all_params
+                if getattr(p, field) is not None]
+        if have:
+            ones = torch.ones_like(have[0])
+            all_params = [p if getattr(p, field) is not None
+                          else p._replace(**{field: ones})
+                          for p in all_params]
     return stages.zip_tensors(torch.stack, all_params)
 
 
@@ -241,6 +301,29 @@ def mobility_sweep_library(days: int = 14,
                   CapacitySqueeze(scale=0.75)),
                  lambda_e=1.0, lambda_p=0.02, mobility=m)
         for m in mobilities
+    ]
+
+
+def forecast_bust_library(days: int = 6) -> List[Scenario]:
+    """Forecast-busting scenarios for intra-day MPC recourse
+    (``SimConfig(mpc=True)``): the day-ahead plan is issued against clean
+    forecasts, then the ACTUAL intensity or arrivals are hit by randomly
+    placed intra-day blocks the planner never saw. Compare the closed loop
+    against the open loop on the same batch (``report.mpc_recourse_rows``)."""
+    return [
+        Scenario("intraday_carbon_spike",
+                 "unforecasted x1.8 intensity block, 8h/day, random hours",
+                 (IntradayCarbonSpike(scale=1.8, hour_len=8),),
+                 lambda_e=1.0),
+        Scenario("intraday_demand_surge",
+                 "unforecasted x1.7 arrival block, 6h/day, random hours",
+                 (IntradayDemandSurge(scale=1.7, hour_len=6),),
+                 lambda_e=1.0),
+        Scenario("intraday_perfect_storm",
+                 "carbon spike + arrival surge, independently placed",
+                 (IntradayCarbonSpike(scale=1.6, hour_len=8),
+                  IntradayDemandSurge(scale=1.5, hour_len=6)),
+                 lambda_e=1.0),
     ]
 
 

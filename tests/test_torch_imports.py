@@ -66,6 +66,13 @@ def test_serving_slice_modules_are_scanned():
             "repro_torch/kernels/linear_scan/ref.py"} <= names
 
 
+def test_closed_loop_slice_modules_are_scanned():
+    """The streaming prediction and MPC recourse modules are among the
+    scanned sources."""
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    assert {"repro_torch/core/stats.py", "repro_torch/core/mpc.py"} <= names
+
+
 @pytest.mark.parametrize("module,source", (
     ("flash_attention", "flash_attention.cu"),
     ("flash_attention", "flash_prefill.cu"),

@@ -8,7 +8,8 @@ also run on a machine that has only PyTorch:
 
 Tolerances: atol 1e-4 on delta after 80 steps of either epoch (the kernels
 sum the hours, and the CVaR epoch the members, in another order than the
-plain versions); one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s, and
+plain versions), and after 8 steps at the MPC loop's suffix boxes, whose
+pinned entries (lo == ub) come back bit for bit; one joint step 1e-5 on d' and 1e-5 x max|g_s| on g_s, and
 with its shift update (#3's fused and split routes) 1e-5 on d' and on s'
 1e-5 x max|z| plus the final bisection bracket's width (the sums over the
 clusters run in another order, so nu may move by about a bracket). The
@@ -160,6 +161,43 @@ def test_solve_on_card_goes_through_the_kernel(cuda_device):
     on_cpu = vcc.solve_vcc(p, device="cpu")
     np.testing.assert_allclose(on_card.delta.cpu().numpy(),
                                on_cpu.delta.numpy(), rtol=0, atol=1e-4)
+
+
+# the suffix boxes of the MPC recourse loop: elapsed hours and whole rows
+# pinned at lo == ub, where the kernel's clamp returns lo bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("hour", (1, 12, 23, 24))
+def test_pinned_entries_come_back_exactly_on_card(cuda_device, hour):
+    args, temp, lam = _rows(1001, hour, cuda_device)
+    lo, ub = args[6], args[7]
+    g = torch.Generator().manual_seed(hour)
+    start = lo + (ub - lo) * torch.rand(lo.shape, generator=g).to(lo.device)
+    pinned = (torch.arange(H, device=lo.device) < hour)[None, :] \
+        | (torch.arange(1001, device=lo.device) % 3 == 0)[:, None]
+    args[0] = start.contiguous()
+    args[6] = torch.where(pinned, start, lo).contiguous()
+    args[7] = torch.where(pinned, start, ub).contiguous()
+    got = kernel.pgd_epoch_cuda(*args, temp, lam, iters=8)
+    want = ref.pgd_epoch_ref(*args, temp=temp, lambda_e=lam, iters=8)
+    torch.cuda.synchronize()
+    for out in (got, want):
+        assert torch.equal(out[pinned], start[pinned])
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_suffix_solve_on_card_goes_through_the_kernel(cuda_device):
+    p = vcc.synthetic_problem(8, seed=3, device="cpu")
+    plan = vcc.solve_vcc(p, device="cpu")
+    before = kernel.pgd_epoch_cuda.launches
+    on_card = vcc.solve_vcc_suffix(p, plan.delta, plan.mu, 12,
+                                   device=cuda_device)
+    assert kernel.pgd_epoch_cuda.launches == before + 2
+    on_cpu = vcc.solve_vcc_suffix(p, plan.delta, plan.mu, 12, device="cpu")
+    got = on_card.delta.cpu()
+    assert torch.equal(got[:, :12], plan.delta[:, :12])
+    np.testing.assert_allclose(got.numpy(), on_cpu.delta.numpy(), rtol=0,
+                               atol=1e-4)
 
 
 def _members(rows, K, seed, device, B=1, H=H):
