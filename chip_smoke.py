@@ -67,6 +67,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    24-hour loop's share, #1 at the closed loop's suffix boxes of hours 1,
    12, 23 and 24 against its plain version (pinned entries bit for bit)
    with one suffix epoch timed, and one profiled closed-loop day;
+5c. telemetry: the main, slice and closed-loop paths again from each
+   one's burned-in state with ``telemetry=True`` and, beside it, with
+   ``telemetry=False`` (both under PyTorch's deterministic algorithms,
+   which fix the order of ``index_add_``'s campus sums): states, ledgers
+   and traj bit for bit, the same launches of #1-#3; the record checked on
+   the card (finite, the gauges' ranges, ``joint_winner`` the day's
+   ``StepOut.best.take``, the recourse gauges ``StepOut.recourse``), its
+   trace written to ``chiprun_out/telemetry_<path>.jsonl`` and read back,
+   the per-scenario table, the CVaR tail in [1/8, 1] on the slice path;
+   each path's day with and without telemetry (median of 3 rollouts) and
+   the launches it adds to a profiled day; ``profile_stages`` on the main
+   and closed-loop states; then ``core.fleet`` at 512 clusters:
+   ``init_fleet`` and two ``day_cycle``s against the engine's burn-in and
+   day steps of the same fleet, bit for bit (20 launches of #1 a day);
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
    then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
@@ -79,6 +93,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    the streaming closed loop (``streaming=True, mpc=True``) at golden size
    over ``forecast_bust_library(3)``, on the card (kernels) against the
    CPU (plain versions), within the parity tests' end-to-end tolerances;
+   the golden and closed-loop runs with ``telemetry=True``, their trace
+   records within the classes of tests/test_torch_telemetry_rollout.py;
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
    and the serving smoke configs in float32, cuda against cpu (logits of
@@ -124,6 +140,9 @@ SLICE_ROWS = SLICE_ROLLOUTS * MAIN_CLUSTERS
 SLICE_KERNEL_ROWS = (1000, SLICE_ROWS, 131072)
 # (rollouts, clusters) past one thread-block cluster's rows: #3's split route
 SPLIT_SHAPE = (4, 3000)
+# each path's configuration, params, burned-in state and telemetry-off
+# results, kept by its phase for the telemetry phase's re-runs
+RUNS = {}
 
 
 def smi(query: str) -> str:
@@ -1088,6 +1107,7 @@ def phase_main_path():
         marks[d] = time.perf_counter()
         if out is None:
             backlog["queue"] = state.queue.sum(-1)
+            backlog["state0"] = state
         else:
             checks.append(check_day(d, out))
 
@@ -1125,6 +1145,9 @@ def phase_main_path():
                              initial_backlog=backlog["queue"])
     print(sim.format_table(rows), flush=True)
     profile_day(cfg, params, state, "profile_day.txt")
+    RUNS["main"] = dict(cfg=cfg, params=params, state0=backlog["state0"],
+                        out=(state, ledger, traj),
+                        names=[s.name for s in scenarios], days=MAIN_DAYS)
     return launches
 
 
@@ -1294,6 +1317,7 @@ def phase_slice_path():
             marks[d] = time.perf_counter()
             if out is None:
                 backlog["queue"] = state.queue.sum(-1)
+                backlog["state0"] = state
             else:
                 checks.append(check_day(d, out))
                 last["out"] = out
@@ -1331,6 +1355,11 @@ def phase_slice_path():
         for name, val in list(ledger._asdict().items()) + list(traj.items()):
             if not torch.isfinite(val).all():
                 raise AssertionError(f"{label}: non-finite values in {name}")
+        if c.joint_spatial:
+            RUNS["slice"] = dict(cfg=c, params=params,
+                                 state0=backlog["state0"],
+                                 out=(state, ledger, traj), names=names,
+                                 days=MAIN_DAYS)
         return state, ledger, counts + [routes, s_proj], backlog["queue"], \
             roll_s, last["out"], bests
 
@@ -1512,6 +1541,7 @@ def phase_closed_loop(card):
             torch.cuda.synchronize()
             marks[d] = time.perf_counter()
             if out is None:
+                sums["state0"] = state
                 sums["backlog"] = state.queue.double().sum(-1)
                 sums["arrived"] = torch.zeros_like(sums["backlog"])
                 sums["served"] = torch.zeros_like(sums["backlog"])
@@ -1579,6 +1609,11 @@ def phase_closed_loop(card):
         for name, val in list(ledger._asdict().items()) + list(traj.items()):
             if not torch.isfinite(val).all():
                 raise AssertionError(f"{label}: non-finite values in {name}")
+        if cfg.mpc:
+            RUNS["closed"] = dict(cfg=cfg, params=params,
+                                  state0=sums["state0"],
+                                  out=(state, ledger, traj), names=names,
+                                  days=CL_DAYS)
         return state, ledger, counts, net_s
 
     _, led_open, counts_open, open_s = drive(cfg_open, "open loop")
@@ -1784,6 +1819,295 @@ def suffix_kernel_checks(captured, card):
                        suffix_rows=rows, suffix_step_max_abs_err=step_err,
                        suffix_epoch_max_abs_err=err)
     return out
+
+
+# ------------------------------------------------- phase 5c: telemetry
+
+TEL_REPS = 3                          # off/on rollout pairs timed a path
+# the 0/1 gauges of a trace record: the 0/1 entries a cluster's value
+# averages (tests/test_torch_telemetry_rollout.py's classes)
+TEL_GAUGES = {"theta_coverage": 1, "paused_frac": 1, "shaped_frac": 1,
+              "uifq_coverage": 24, "vcc_binding_frac": 24,
+              "mpc_recourse_frac": 24}
+TEL_RATE = ("obj_first", "obj_final", "uif_mape", "uif_bias",
+            "proj_tol_max", "cvar_tail_max")
+TEL_ADMITTED = ("queue_age_max", "tuf_mape", "tuf_bias", "tr_mape",
+                "tr_bias", "fc_level_drift", "obj_decrease_pct",
+                "mpc_recourse_depth")
+
+
+def tel_expected(path):
+    """Launches of #1, #2, #3 (and #3 by route) a path's 7-day run makes."""
+    if path == "slice":
+        steps = MAIN_DAYS * JOINT_ROUNDS * JOINT_STEPS
+        return [MAIN_DAYS * SOLVE_ROUNDS, MAIN_DAYS * SOLVE_ROUNDS, steps,
+                {"fused": steps, "split": 0}]
+    per_day = SOLVE_ROUNDS + (24 * SUFFIX_ROUNDS if path == "closed" else 0)
+    return [MAIN_DAYS * per_day, 0, 0, {"fused": 0, "split": 0}]
+
+
+@contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms while entered (``index_add_``,
+    the campus sums, then sums in a fixed order on the card); yields the
+    warnings of ops that have none."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def tel_rollout(run, telemetry, outs=None):
+    """One run of a path's rollout from its burned-in state, with or
+    without telemetry; ``outs`` collects the days' StepOuts. Returns the
+    result and the launches of #1-#3 (and #3 by route)."""
+    import dataclasses
+
+    from repro_torch import sim
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    cfg = dataclasses.replace(run["cfg"], telemetry=telemetry)
+    on_day = None if outs is None else \
+        (lambda d, s, o: o is not None and outs.append(o))
+    roll = sim.make_rollout(cfg, run["days"], on_day=on_day)
+    reset_counts()
+    result = roll(run["params"], run["state0"])
+    torch.cuda.synchronize()
+    return result, read_counts()[:3] + [dict(
+        pgd_kernel.joint_step_cuda.routes)]
+
+
+def leaves(tree):
+    from repro_torch.core import stages
+    out = []
+    stages.map_tensors(out.append, tree)
+    return out
+
+
+def tel_record_checks(path, tel, outs):
+    """On the card: every leaf finite and (B, days, ...), the gauges'
+    ranges (tests/test_telemetry.py's), ``joint_winner`` the day's
+    ``StepOut.best.take``, the recourse gauges ``StepOut.recourse``."""
+    B = outs[0].res.served.shape[0]
+    for name, leaf in tel._asdict().items():
+        if leaf.shape[:2] != (B, len(outs)) or not torch.isfinite(
+                leaf).all():
+            raise AssertionError(f"[telemetry] {path}: {name} of shape "
+                                 f"{tuple(leaf.shape)} or not finite")
+    for leaf in (tel.uifq_coverage, tel.vcc_binding_frac, tel.theta_covered,
+                 tel.paused, tel.shaped, tel.mpc_recourse_frac):
+        if not ((leaf >= 0).all() and (leaf <= 1).all()):
+            raise AssertionError(f"[telemetry] {path}: a gauge out of [0, 1]")
+    for leaf in (tel.uif_mape, tel.tuf_mape, tel.tr_mape, tel.queue_age_days,
+                 tel.fc_level_drift, tel.proj_nu_tol, tel.dual_resid,
+                 tel.cvar_tail_mass, tel.mpc_recourse_depth):
+        if not (leaf >= 0).all():
+            raise AssertionError(f"[telemetry] {path}: a channel below 0")
+    for d, o in enumerate(outs):
+        take = torch.zeros(B, dtype=torch.bool, device=o.res.served.device) \
+            if o.best is None else o.best.take
+        if not torch.equal(tel.joint_winner[:, d], take.to(torch.float32)):
+            raise AssertionError(f"[telemetry] {path} day {d}: joint_winner "
+                                 "is not StepOut.best.take")
+        rec = (torch.zeros_like(tel.mpc_recourse_frac[:, d]),) * 2 \
+            if o.recourse is None else o.recourse
+        if not (torch.equal(tel.mpc_recourse_frac[:, d], rec[0])
+                and torch.equal(tel.mpc_recourse_depth[:, d], rec[1])):
+            raise AssertionError(f"[telemetry] {path} day {d}: the recourse "
+                                 "gauges are not StepOut.recourse")
+
+
+def tel_trace(path, run, tel):
+    """The records to chiprun_out/telemetry_<path>.jsonl and back, the
+    per-scenario table; on the slice path the CVaR tail over 8 members."""
+    from repro_torch import sim
+    S = len(MAIN_SEEDS)
+    records = sim.telemetry_records(tel, run["names"], S)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    fname = out / f"telemetry_{path}.jsonl"
+    sim.write_jsonl(fname, records)
+    if sim.read_jsonl(fname) != json.loads(json.dumps(records)):
+        raise AssertionError(f"[telemetry] {path}: {fname.name} does not "
+                             "read back equal")
+    if tuple(records[0]) != sim.TRACE_FIELDS:
+        raise AssertionError(f"[telemetry] {path}: the records' fields")
+    print(f"[telemetry] {path}: {len(records)} records to "
+          f"chiprun_out/{fname.name}, read back equal; per scenario:",
+          flush=True)
+    print(sim.format_table(sim.telemetry_rows(records, run["names"]),
+                           sim.TELEMETRY_COLUMNS), flush=True)
+    if path == "slice":
+        tail = [r["cvar_tail_max"] for r in records]
+        print(f"[telemetry] slice: cvar_tail_max over the records "
+              f"{min(tail):.4f} to {max(tail):.4f} (K = {SLICE_MEMBERS}: "
+              f"limits 1/{SLICE_MEMBERS} and 1)", flush=True)
+        if not (min(tail) >= 1 / SLICE_MEMBERS - 1e-6 and max(tail) <= 1):
+            raise AssertionError("[telemetry] slice: cvar_tail_max outside "
+                                 f"[1/{SLICE_MEMBERS}, 1]")
+    return records
+
+
+def tel_overhead(path, run):
+    """Day ms with telemetry off and on, each the median of TEL_REPS
+    rollouts from the burned-in state (alternated, host clock, after a
+    synchronize); and one profiled day each way: the launches telemetry
+    adds a day."""
+    import dataclasses
+
+    from repro_torch import sim
+    from repro_torch.sim import engine
+    days = {False: [], True: []}
+    for _ in range(TEL_REPS):
+        for tel in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tel_rollout(run, tel)
+            days[tel].append(1e3 * (time.perf_counter() - t0) / run["days"])
+    off, on = (statistics.median(days[t]) for t in (False, True))
+    xs = engine.day_xs(run["params"], 0)
+    counts = {}
+    for tel in (False, True):
+        step = sim.make_day_step(dataclasses.replace(run["cfg"],
+                                                     telemetry=tel))
+        counts[tel] = profile_call(
+            lambda: step(run["params"], run["state0"], xs),
+            f"profile_telemetry_{path}_{'on' if tel else 'off'}.txt",
+            f"{path} day, telemetry {'on' if tel else 'off'}")[3]
+    print(f"[telemetry] {path} overhead: a day {off:.1f} ms off, {on:.1f} "
+          f"ms on (median of {TEL_REPS} rollouts each: off "
+          f"{[round(x, 1) for x in days[False]]}, on "
+          f"{[round(x, 1) for x in days[True]]}), {100 * (on - off) / off:+.1f}%"
+          f"; a profiled day {counts[False]} launches off, {counts[True]} on "
+          f"({counts[True] - counts[False]:+d})", flush=True)
+    return off, on, counts[True] - counts[False]
+
+
+def phase_telemetry():
+    """Every path again with telemetry=True from the state its
+    telemetry-off run started from: the same states, ledgers and traj bit
+    for bit, the same launches of #1-#3; the record checked on the card,
+    exported and tabled; the overhead; the stage profiler on the main and
+    closed-loop states; a fleet day through ``core.fleet``."""
+    from repro_torch import sim
+    print("[telemetry] each path's off and on runs from its burned-in state "
+          "under torch.use_deterministic_algorithms (index_add_'s campus "
+          "sums in a fixed order)", flush=True)
+    for path in ("main", "slice", "closed"):
+        run = RUNS[path]
+        with deterministic() as caught:
+            off, c_off = tel_rollout(run, False)
+            outs = []
+            on, c_on = tel_rollout(run, True, outs)
+        ops = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught})
+        tel = on[2].pop("telemetry")
+        a, b = leaves(off), leaves(on)
+        same = len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+        first = leaves(run["out"])
+        gap = max(((x.double() - y.double()).abs().max().item()
+                   / max(y.double().abs().max().item(), 1e-30)
+                   if x.is_floating_point() else float((x != y).any()))
+                  for x, y in zip(first, a) if x.numel())
+        want = tel_expected(path)
+        print(f"[telemetry] {path}: off vs on, states / ledgers / traj "
+              f"({len(a)} tensors) bit for bit: {same}; launches of #1 / #2 "
+              f"/ #3 (#3 by route) off {c_off}, on {c_on}, expected {want}; "
+              f"the phase's first off run (atomic index_add_) against this "
+              f"re-run, largest gap relative to the largest value {gap:.3e}"
+              f"; ops without a deterministic algorithm: "
+              f"{ops or 'none'}", flush=True)
+        if not same:
+            raise AssertionError(f"[telemetry] {path}: telemetry changed the "
+                                 "run")
+        if c_off != want or c_on != want:
+            raise AssertionError(f"[telemetry] {path}: launches {c_off} / "
+                                 f"{c_on}, expected {want}")
+        tel_record_checks(path, tel, outs)
+        tel_trace(path, run, tel)
+        tel_overhead(path, run)
+    for path in ("main", "closed"):
+        run = RUNS[path]
+        state = run["out"][0]
+        rows = sim.profile_stages(run["cfg"].stage_config(), run["params"],
+                                  state, reps=3)
+        print(f"[telemetry] profile_stages on the {path} path's state "
+              f"(after its {run['days']} days; best of 3; device_ms from "
+              "CUDA events; launches of #1 / #2 / #3 a call):", flush=True)
+        print(sim.format_stage_table(rows), flush=True)
+    phase_fleet()
+
+
+FLEET_DAYS = 2
+
+
+def phase_fleet():
+    """``core.fleet`` at full width: ``init_fleet`` (91 days of burn-in) and
+    two ``day_cycle``s on the card, against the engine's burn-in and day
+    steps of the same fleet (a one-rollout batch), bit for bit."""
+    from repro_torch import sim
+    from repro_torch.core import fleet
+    from repro_torch.sim import engine
+    fcfg = fleet.FleetConfig(n_clusters=MAIN_CLUSTERS, n_campuses=64,
+                             n_zones=16, pds_per_cluster=2, telemetry=True)
+    scfg = sim.SimConfig(n_clusters=MAIN_CLUSTERS, n_campuses=64, n_zones=16,
+                         pds_per_cluster=2, hist_days=fcfg.hist_days,
+                         telemetry=True)
+    with deterministic():
+        t0 = time.perf_counter()
+        st = fleet.init_fleet(fcfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params = sim.build_batch(scfg, [sim.Scenario(
+            "fleet", lambda_e=fcfg.lambda_e, lambda_p=fcfg.lambda_p,
+            gamma=fcfg.gamma)], [fcfg.seed], FLEET_DAYS)
+        state = sim.make_init(scfg)(params)
+        for k in ("hist_uif", "hist_usage", "carbon_hist", "campus_limit",
+                  "queue"):
+            if not torch.equal(getattr(st, k), getattr(state, k)[0]):
+                raise AssertionError(f"[fleet] init_fleet's {k} is not the "
+                                     "engine's")
+        step = sim.make_day_step(scfg)
+        for d in range(FLEET_DAYS):
+            reset_counts()
+            rec = {}
+            t2 = time.perf_counter()
+            st = fleet.day_cycle(st, rec)
+            torch.cuda.synchronize()
+            day_ms = 1e3 * (time.perf_counter() - t2)
+            launches = read_counts()
+            state, out = step(params, state, engine.day_xs(params, d))
+            got = leaves((rec["fc"], rec["sol"].__dict__, rec["vcc"],
+                          rec["result"].__dict__, rec["cf_result"].__dict__,
+                          rec["intensity"], rec["telemetry"],
+                          rec["problem"].__dict__))
+            want = leaves((out.fc, out.sol.__dict__, out.vcc_curve,
+                           out.res.__dict__, out.cf.__dict__, out.eta_act,
+                           out.telemetry, out.prob.__dict__))
+            if len(got) != len(want) or not all(
+                    torch.equal(x, y[0]) for x, y in zip(got, want)):
+                raise AssertionError(f"[fleet] day {d}: day_cycle's record is "
+                                     "not the engine step's")
+            for k in ("queue", "cf_queue", "hist_usage", "campus_limit"):
+                if not torch.equal(getattr(st, k), getattr(state, k)[0]):
+                    raise AssertionError(f"[fleet] day {d}: state {k}")
+            line = sim.telemetry_records(sim.DayTelemetry(
+                *(x[None, None] for x in rec["telemetry"])), ["fleet"], 1)[0]
+            print(f"[fleet] day {st.day}: day_cycle {day_ms:.1f} ms (host "
+                  f"clock), launches of #1 to #5 {launches} (expected "
+                  f"[{SOLVE_ROUNDS}, 0, 0, 0, 0]); record and state equal "
+                  f"the engine's step bit for bit; trace line "
+                  f"{json.dumps(line)}", flush=True)
+            if launches != [SOLVE_ROUNDS, 0, 0, 0, 0]:
+                raise AssertionError(f"[fleet] day {d}: launches {launches}")
+    print(f"[fleet] init_fleet ({fcfg.n_clusters} clusters / "
+          f"{fcfg.n_campuses} campuses / {fcfg.n_zones} zones, "
+          f"{fcfg.hist_days} days of burn-in) {t1 - t0:.2f} s, equal to the "
+          f"engine's burn-in bit for bit", flush=True)
 
 
 # ------------------------------------------------- phase 6: serving path
@@ -2010,18 +2334,21 @@ RTOL_KEYS = ("carbon_kg", "kwh", "cf_carbon_kg", "cf_kwh", "served",
 ATOL_KEYS = ("delayed_cpu_h", "cf_delayed_cpu_h")
 
 
-def golden_rollout(device, slice_path=False, closed_loop=False):
+def golden_rollout(device, slice_path=False, closed_loop=False,
+                   telemetry=False):
     """The golden configuration; ``slice_path=True`` runs the slice's
     configuration (joint spatial, 8 members) at golden size over two
     scenarios of each sweep library instead, ``closed_loop=True`` the
     streaming closed loop (``streaming=True, mpc=True``) over
-    ``forecast_bust_library``."""
+    ``forecast_bust_library``; ``telemetry=True`` also returns the trace
+    records and the days' largest |delta|."""
     from repro_torch import sim
     kw = dict(joint_spatial=True, n_members=SLICE_MEMBERS) \
         if slice_path else dict(streaming=True, mpc=True) \
         if closed_loop else {}
     cfg = sim.SimConfig(n_clusters=8, n_campuses=2, n_zones=2,
-                        pds_per_cluster=2, hist_days=14, **kw)
+                        pds_per_cluster=2, hist_days=14, telemetry=telemetry,
+                        **kw)
     if slice_path:
         scenarios = sim.mobility_sweep_library(GOLDEN_DAYS, (0.0, 0.3)) \
             + sim.risk_sweep_library(GOLDEN_DAYS, (0.5, 0.9))
@@ -2033,18 +2360,24 @@ def golden_rollout(device, slice_path=False, closed_loop=False):
                                   lambda_e=2.0)]
     params = sim.build_batch(cfg, scenarios, (0, 1), GOLDEN_DAYS,
                              device=device)
-    takes, margins = [], []
+    takes, margins, deltas = [], [], []
 
     def on_day(d, state, out):
         if out is not None and out.best is not None:
             takes.append(out.best.take.cpu())
             margins.append(out.best.margin.cpu())
+        if out is not None:
+            deltas.append(out.sol.delta.abs().max().item())
 
-    state, ledger, _ = sim.rollout_batch(cfg, GOLDEN_DAYS, device=device,
-                                         on_day=on_day)(params)
-    if not takes:
-        return state, ledger, None
-    return state, ledger, (torch.stack(takes, 1), torch.stack(margins, 1))
+    state, ledger, traj = sim.rollout_batch(cfg, GOLDEN_DAYS, device=device,
+                                            on_day=on_day)(params)
+    best = (torch.stack(takes, 1), torch.stack(margins, 1)) if takes \
+        else None
+    if not telemetry:
+        return state, ledger, best
+    records = sim.telemetry_records(traj["telemetry"],
+                                    [sc.name for sc in scenarios], 2)
+    return state, ledger, best, records, max(deltas)
 
 
 TIE_TOL = 1e-5      # a best-of call this close may fall either way
@@ -2073,14 +2406,61 @@ def check_verdicts(label, gpu, cpu):
                                  "was no tie")
 
 
-def phase_cross_device(slice_path=False, closed_loop=False):
+def check_trace_devices(label, got, want, n, delta_max):
+    """The card's trace records against the CPU's, by the classes of
+    tests/test_torch_telemetry_rollout.py: rates 1e-3 x max|cpu|; what
+    passes admission 5e-2 x max|cpu|; the last step 2e-2 x max|delta|; the
+    dual residual 1e-3; the conservation residual below 1e-5 on both; at
+    most 2 flips of a 0/1 gauge; the best-of call equal."""
+    gaps, flips, bad = {}, {}, []
+    for f in TRACE_FIELDS_COMPARED:
+        g = torch.tensor([r[f] for r in got], dtype=torch.float64)
+        w = torch.tensor([r[f] for r in want], dtype=torch.float64)
+        gap = (g - w).abs().max().item()
+        scale = max(w.abs().max().item(), 1e-30)
+        gaps[f] = gap / scale
+        if f in TEL_RATE:
+            ok = gap <= 1e-3 * scale
+        elif f in TEL_ADMITTED:
+            ok = gap <= 5e-2 * scale
+        elif f == "step_final":
+            ok = gap <= 2e-2 * delta_max
+        elif f == "dual_max":
+            ok = gap <= 1e-3
+        elif f == "conservation_max":
+            ok = g.max().item() < 1e-5 and w.max().item() < 1e-5
+        elif f in TEL_GAUGES:
+            flips[f] = int(torch.round((g - w).abs() * n * TEL_GAUGES[f]
+                                       ).sum().item())
+            ok = flips[f] <= 2
+        else:
+            ok = gap == 0.0
+        if not ok:
+            bad.append(f"{f} (gap {gap:.3e} of {scale:.3e})")
+    print(f"[{label}] telemetry trace, cuda vs cpu, {len(got)} records, "
+          "largest gap relative to the largest value: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f"; 0/1 gauge flips {flips}", flush=True)
+    if bad:
+        raise AssertionError(f"[{label}] telemetry beyond its class: "
+                             + ", ".join(bad))
+
+
+TRACE_FIELDS_COMPARED = TEL_RATE + TEL_ADMITTED + (
+    "step_final", "dual_max", "conservation_max", "joint_winner") \
+    + tuple(TEL_GAUGES)
+
+
+def phase_cross_device(slice_path=False, closed_loop=False, telemetry=False):
     label = "golden slice" if slice_path else "golden closed loop" \
         if closed_loop else "golden"
     t0 = time.perf_counter()
-    gpu_state, gpu_led, gpu_best = golden_rollout("cuda", slice_path,
-                                                  closed_loop)
-    cpu_state, cpu_led, cpu_best = golden_rollout("cpu", slice_path,
-                                                  closed_loop)
+    gpu = golden_rollout("cuda", slice_path, closed_loop, telemetry)
+    cpu = golden_rollout("cpu", slice_path, closed_loop, telemetry)
+    (gpu_state, gpu_led, gpu_best), (cpu_state, cpu_led, cpu_best) = \
+        gpu[:3], cpu[:3]
+    if telemetry:
+        check_trace_devices(label, gpu[3], cpu[3], 8, max(gpu[4], cpu[4]))
     if slice_path:
         check_verdicts(label, gpu_best, cpu_best)
     gaps = {}
@@ -2122,12 +2502,13 @@ def main():
     records[5]["launches"] = counts[6]
     # #1's launches and its suffix epoch on the closed-loop path
     records[0].update(phase_closed_loop(card))
+    phase_telemetry()
     (records[3]["launches"], records[4]["launches"]), \
         records[3]["launches_by_route"], records[4]["launches_by_route"] = \
         phase_serve()
-    phase_cross_device()
+    phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
-    phase_cross_device(closed_loop=True)
+    phase_cross_device(closed_loop=True, telemetry=True)
     phase_serve_golden()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

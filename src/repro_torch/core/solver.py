@@ -1,5 +1,4 @@
-"""Projected-gradient solver layer (port of ``repro.core.solver``, without
-the telemetry hooks).
+"""Projected-gradient solver layer (port of ``repro.core.solver``).
 
 * ``project_conservation`` — exact bisection projection of each row onto
   {sum = 0} ∩ [lo, ub] (the plain version lives in
@@ -9,7 +8,9 @@ the telemetry hooks).
 * ``peak_temperature`` / ``scaled_lr`` — the softmax-peak temperature and
   the per-cluster learning rate.
 * ``campus_dual_update`` / ``dual_ascent`` — the outer loop: rounds of
-  [inner PGD epoch -> clipped ascent on the campus power couplings].
+  [inner PGD epoch -> clipped ascent on the campus power couplings], with
+  an optional per-round diagnostic record (``diag_fn``, the telemetry
+  hook).
 * ``pgd_epochs`` — the fused epoch (plain or CVaR ensemble), dispatched by
   ``kernels.vcc_pgd.ops``;
 * ``joint_epochs`` — joint spatio-temporal steps: the per-cluster joint
@@ -88,14 +89,30 @@ def campus_dual_update(mu, y, campus, campus_limit, rho):
                        / torch.clamp(campus_limit, min=1e-9), min=0.0)
 
 
-def dual_ascent(inner, dual_update, x0, mu0, outer_iters: int):
+def dual_ascent(inner, dual_update, x0, mu0, outer_iters: int,
+                diag_fn=None):
     """``outer_iters`` rounds of [x = inner(x, mu);
-    mu = dual_update(x, mu)]."""
+    mu = dual_update(x, mu)]. ``x`` may be a tuple (the joint solve
+    carries (delta, s)).
+
+    ``diag_fn(x_prev, x_new, mu_new)`` (optional) returns one dict of
+    tensors a round; the return is then ``(x, mu, ys)``, each ys leaf
+    stacked along a new rounds axis right after the batch dims of ``mu0``
+    (..., n_dc): a per-cluster record (..., n) becomes (..., T, n). With
+    ``diag_fn=None`` the loop and its return are the two-value ones."""
     x, mu = x0, mu0
+    records = []
     for _ in range(outer_iters):
-        x = inner(x, mu)
-        mu = dual_update(x, mu)
-    return x, mu
+        x_new = inner(x, mu)
+        mu = dual_update(x_new, mu)
+        if diag_fn is not None:
+            records.append(diag_fn(x, x_new, mu))
+        x = x_new
+    if diag_fn is None:
+        return x, mu
+    dim = mu0.dim() - 1
+    return x, mu, {k: torch.stack([r[k] for r in records], dim=dim)
+                   for k in records[0]}
 
 
 def pgd_epochs(prob, delta, mu, lo, ub, lr_eff, temp, iters: int):

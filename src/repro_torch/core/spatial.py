@@ -91,11 +91,16 @@ class BestOf(NamedTuple):
 def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
                 outer_iters: int = 20, joint_inner: int = 25,
                 joint_outer: int = 8, lr: float = 0.5, lr_s: float = 0.15,
-                temp_frac: float = 0.02, rho: float = 0.2, device=None):
+                temp_frac: float = 0.02, rho: float = 0.2, device=None,
+                telemetry: bool = False):
     """Joint spatio-temporal VCC optimization on ``device`` (default
     ``"cuda"``). Returns (solution, tau_joint (..., n), s (..., n),
     ``BestOf``); the solution's deviations and curves are those of the
-    shifted budgets tau_joint = clip(tau + s, 0).
+    shifted budgets tau_joint = clip(tau + s, 0). ``telemetry=True``
+    appends the solver diagnostics: the warm start's trajectories,
+    ``vcc.solution_diagnostics`` at the final point, and ``joint_winner``
+    (...) float32, 1.0 where the joint point was kept (0.0 on the
+    mobility-0 shortcut, where no joint point is formed).
 
     1. A Python-number ``mobility == 0`` is the temporal solve alone.
        A tensor ``mobility`` (one per rollout) always runs the joint path;
@@ -113,17 +118,25 @@ def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
     if not isinstance(mobility, torch.Tensor) and float(mobility) == 0.0:
         sol = vcc.solve_vcc(p, inner_iters=inner_iters,
                             outer_iters=outer_iters, lr=lr,
-                            temp_frac=temp_frac, rho=rho, device=dev)
-        return sol, p.tau, torch.zeros_like(p.tau), BestOf(
-            torch.zeros_like(p.lambda_e, dtype=torch.bool),
-            torch.full_like(p.lambda_e, -torch.inf))
+                            temp_frac=temp_frac, rho=rho, device=dev,
+                            telemetry=telemetry)
+        best = BestOf(torch.zeros_like(p.lambda_e, dtype=torch.bool),
+                      torch.full_like(p.lambda_e, -torch.inf))
+        if telemetry:
+            sol, diag = sol
+            diag["joint_winner"] = torch.zeros_like(p.lambda_e)
+            return sol, p.tau, torch.zeros_like(p.tau), best, diag
+        return sol, p.tau, torch.zeros_like(p.tau), best
 
     mob = torch.as_tensor(mobility, dtype=f32, device=dev)
     # 2. sequential two-phase warm start
     tau_sh, _ = spatial_shift(p, mobility=mob)
     sol_seq = vcc.solve_vcc(dataclasses.replace(p, tau=tau_sh),
                             inner_iters=inner_iters, outer_iters=outer_iters,
-                            lr=lr, temp_frac=temp_frac, rho=rho, device=dev)
+                            lr=lr, temp_frac=temp_frac, rho=rho, device=dev,
+                            telemetry=telemetry)
+    if telemetry:
+        sol_seq, diag_seq = sol_seq
     lo_s, ub_s = shift_bounds(p, mob)
     s0 = torch.clamp(tau_sh - p.tau, lo_s, ub_s)
 
@@ -176,4 +189,11 @@ def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
                             cap.expand_as(vcc_shaped))
     sol = VCCSolution(delta=delta, y=y, vcc=vcc_curve, shaped=feasible,
                       mu=mu, objective=joint_objective(p, delta, s, mu))
+    if telemetry:
+        diag = {"obj_cluster_traj": diag_seq["obj_cluster_traj"],
+                "step_max_traj": diag_seq["step_max_traj"],
+                **vcc.solution_diagnostics(pf, delta, mu,
+                                           temp_frac=temp_frac),
+                "joint_winner": take.to(f32)}
+        return sol, tau_j, s, BestOf(take, margin), diag
     return sol, tau_j, s, BestOf(take, margin)

@@ -21,11 +21,13 @@ Every simulated day is the same pipeline (paper Fig. 4/5):
                     (``core.mpc``) re-plans the remaining hours as they
                     realize
   slo_stage       — violation detection + shaping-pause feedback
+  (telemetry)     — with ``telemetry``, the day's ``sim.telemetry``
+                    ``DayTelemetry`` record in ``StepOut.telemetry``
 
-The port runs rescan or streaming forecasting, the open or the closed
-(MPC) loop, with or without the joint spatial solve and (rescan only)
-forecast ensembles; ``make_day_step`` raises on telemetry, which is not
-ported.
+The port runs every ``StageConfig`` of the reference: rescan or streaming
+forecasting, the open or the closed (MPC) loop, with or without the joint
+spatial solve, (rescan only) forecast ensembles, and telemetry on any of
+them.
 
 Batching: every leaf of ``SimParams`` and ``SimState`` carries a leading
 (scenario x seed) batch axis B, in place of the reference's ``vmap``; the
@@ -37,13 +39,16 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch.core import (admission, carbon, forecast, mpc, power,
                               prng, risk, slo, solver, spatial, stats, vcc)
+
+if TYPE_CHECKING:
+    from repro_torch.sim.telemetry import DayTelemetry
 
 f32 = torch.float32
 hour_sum = admission.hour_sum
@@ -240,6 +245,8 @@ class StepOut(NamedTuple):
     eta_act: torch.Tensor             # (B, n, 24) actual intensity
     best: Optional[spatial.BestOf] = None  # joint solve's call (joint only)
     recourse: Optional[mpc.MPCDiag] = None  # recourse diagnostics (mpc only)
+    telemetry: Optional[DayTelemetry] = None  # the day's record
+    #                                   (``sim.telemetry``; telemetry only)
 
 
 @dataclass(frozen=True)
@@ -247,7 +254,8 @@ class StageConfig:
     """Knobs of the staged day cycle. ``streaming``: the O(1)
     ``stats.PredictorState`` carry instead of the history rescans (not with
     ``n_members > 1``); ``mpc``: the hourly recourse loop of ``core.mpc``;
-    ``telemetry`` must keep its default (``make_day_step`` raises)."""
+    ``telemetry``: the day's ``sim.telemetry.DayTelemetry`` record in
+    ``StepOut.telemetry`` (the state and the other outputs unchanged)."""
     slo_margin: float = 1.0
     slo_pause_days: int = 7
     joint_spatial: bool = False
@@ -383,7 +391,10 @@ def optimize_stage(fc, eta_fc, model: PowerModel, queue, u_pow_cap,
                    mobility, *, cfg: StageConfig = StageConfig(), ens=None):
     """Fleetwide VCC optimization. Returns (prob, sol, best): ``best``
     is the joint solve's best-of call per rollout (``spatial.BestOf``),
-    None without ``cfg.joint_spatial``.
+    None without ``cfg.joint_spatial``. With ``cfg.telemetry`` a fourth
+    item: the solver diagnostics of the solve that made ``sol``
+    (``vcc.solve_vcc(telemetry=True)``'s channels) and ``joint_winner``
+    (B,), the joint solve's call, 0.0 on the sequential path.
 
     * ``cfg.joint_spatial`` False: greedy spatial pre-shift (mobility 0
       leaves tau exactly), then the temporal solve;
@@ -400,18 +411,30 @@ def optimize_stage(fc, eta_fc, model: PowerModel, queue, u_pow_cap,
         lambda u: model_slope(model, u), queue, u_pow_cap, cap_day, campus,
         campus_limit, lambda_e, lambda_p)
     dev = prob.eta.device
+    tel = cfg.telemetry
     if cfg.joint_spatial:
-        sol, tau_j, _, best = spatial.solve_joint(prob, mobility, device=dev)
+        sol, tau_j, _, best, *diag = spatial.solve_joint(
+            prob, mobility, device=dev, telemetry=tel)
         prob = dataclasses.replace(prob, tau=tau_j)
         if ens is not None:
             prob = risk.attach_ensemble(prob, **ens)
-            sol = vcc.solve_vcc(prob, device=dev)
-        return prob, sol, best
+            sol = vcc.solve_vcc(prob, device=dev, telemetry=tel)
+            if tel:
+                # the CVaR solve at the shifted budgets makes the final
+                # delta: report its convergence, keep the joint call
+                sol, cvar = sol
+                diag = [{**cvar, "joint_winner": diag[0]["joint_winner"]}]
+        return (prob, sol, best, *diag)
     tau_shifted, _ = spatial.spatial_shift(prob, mobility=mobility)
     prob = dataclasses.replace(prob, tau=tau_shifted)
     if ens is not None:
         prob = risk.attach_ensemble(prob, **ens)
-    return prob, vcc.solve_vcc(prob, device=dev), None
+    if not tel:
+        return prob, vcc.solve_vcc(prob, device=dev), None
+    sol, diag = vcc.solve_vcc(prob, device=dev, telemetry=True)
+    # the sequential path runs no joint refinement: the call reads 0.0
+    diag["joint_winner"] = torch.zeros_like(prob.lambda_e)
+    return prob, sol, None, diag
 
 
 def sample_day_truth(truth, day, day_key, cap_day, arr_scale,
@@ -479,9 +502,6 @@ def make_day_step(cfg: StageConfig):
     Returns step(params, state, xs) -> (state', StepOut) where xs holds this
     day's scenario-schedule slices (B, z) / (B, n) / (B, m), and (B, 24)
     for the intraday channels when the scenarios carry them."""
-    if cfg.telemetry:
-        raise NotImplementedError("StageConfig.telemetry=True is not ported "
-                                  "yet")
     if cfg.n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {cfg.n_members}")
     if cfg.streaming and cfg.n_members > 1:
@@ -526,7 +546,7 @@ def make_day_step(cfg: StageConfig):
                 prng.fold_in(day_key, 5), cfg.n_members, fc["uif"],
                 state.hist_uif_pred, state.hist_uif, fc_z,
                 state.carbon_hist, state.zmap, params.risk_beta)
-        prob, sol, best = optimize_stage(
+        prob, sol, best, *sdiag = optimize_stage(
             fc, eta_fc, model, state.queue,
             state.u_pow_cap * xs["cap_scale"], cap_day, state.campus,
             state.campus_limit * xs["campus_scale"], params.lambda_e,
@@ -590,12 +610,43 @@ def make_day_step(cfg: StageConfig):
             shaping_allowed=allowed,
             **new_slo, **carry,
         )
+        telem = None
+        if cfg.telemetry:
+            # the record observes the day: it reads the stage products
+            # above and feeds nothing back
+            from repro_torch.sim import telemetry as _telemetry
+            if cfg.streaming:
+                trail = {"uif": state.pred.uif_day_ring,
+                         "tuf": state.pred.flex_ring,
+                         "tr": state.pred.res_ring}
+            else:
+                trail = {"uif": hour_sum(state.hist_uif[:, :, -7:]),
+                         "tuf": state.hist_flex_daily[:, :, -7:],
+                         "tr": state.hist_res_daily[:, :, -7:]}
+            telem = _telemetry.day_telemetry(
+                sdiag[0], fc, res, u_if, vcc_curve,
+                pause_left=new_slo["pause_left"], shaped=sol.shaped,
+                trail=trail, recourse=mdiag)
         return new_state, StepOut(res=res, cf=cf, sol=sol,
                                   vcc_curve=vcc_curve, fc=fc, prob=prob,
                                   eta_act=eta_act, best=best,
-                                  recourse=mdiag)
+                                  recourse=mdiag, telemetry=telem)
 
     return step
+
+
+def ones_xs(B: int, n_clusters: int, n_campuses: int, n_zones: int,
+            device=None) -> Dict[str, torch.Tensor]:
+    """Neutral (nominal-operation) scenario slices of one day for B
+    rollouts, on ``device`` (default ``"cuda"``)."""
+    dev = _device.resolve(device)
+
+    def ones(k):
+        return torch.ones((B, k), dtype=f32, device=dev)
+
+    return {"green_scale": ones(n_zones), "coal_scale": ones(n_zones),
+            "cap_scale": ones(n_clusters), "arrival_scale": ones(n_clusters),
+            "campus_scale": ones(n_campuses)}
 
 
 # ------------------------------------------------------------ init/burn-in

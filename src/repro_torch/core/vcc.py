@@ -13,11 +13,16 @@ coupling, assembled from ``core.solver``. The PGD epoch is the fused kernel
 (``kernels.vcc_pgd``). Clusters whose bounds make shaping infeasible get
 VCC = machine capacity.
 
-Port of ``repro.core.vcc`` (telemetry off). Every field may carry leading
+Port of ``repro.core.vcc``. Every field may carry leading
 batch axes (the scenario x seed batch); ``lambda_e``, ``lambda_p`` and
 ``risk_beta`` then have the batch shape. A problem may carry K day-ahead
 forecast members (``risk.attach_ensemble``); its PGD epoch then descends the
 soft-CVaR member tilt at ``risk_beta`` (the CVaR ensemble kernel).
+
+``solve_vcc(telemetry=True)`` also returns the solver's convergence
+channels: the per-round objective and step trajectories and the
+post-solve residuals of ``solution_diagnostics``, observers that launch no
+kernel.
 
 ``solve_vcc_suffix`` is the intra-day re-solve of the MPC recourse loop
 (``core.mpc``): the hours already elapsed are pinned (``suffix_bounds``)
@@ -36,6 +41,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import prng, solver
 from repro_torch.core.admission import hour_sum
+from repro_torch.kernels.vcc_pgd import ref as _pgd_ref
 
 f32 = torch.float32
 
@@ -117,14 +123,80 @@ def objective(p: VCCProblem, delta, mu, *, risk: bool = True):
     return carbon + (peak_price * y).sum(-1)
 
 
+def cluster_objective(p: VCCProblem, delta):
+    """Per-cluster nominal (eq. 4, mu-free) day cost of ``delta``:
+    lambda_e * sum_h eta * pow + lambda_p * max_h pow, shape (..., n).
+    Ordered hour sums only, so a batch equals its rollouts alone."""
+    pow_h = cluster_power(p, delta)
+    return p.lambda_e[..., None] * hour_sum(p.eta * pow_h) \
+        + p.lambda_p[..., None] * pow_h.amax(-1)
+
+
+def solution_diagnostics(p: VCCProblem, delta, mu, *,
+                         temp_frac: float = 0.02, proj_iters: int = 50):
+    """Post-solve convergence residuals of ``(delta, mu)``, the cluster and
+    campus axes not reduced:
+
+    * ``conservation_resid`` (..., n): |sum_h delta|;
+    * ``proj_nu_tol`` (..., n): the certified tolerance of the projection's
+      nu bisection at the solution, the initial bracket width of
+      ``kernels.vcc_pgd.ref.project_row`` halved ``proj_iters`` times;
+    * ``dual_resid`` (..., n_dc): the relative campus overshoot
+      max(0, (sum_c y - L) / L) at the final point;
+    * ``cvar_tail_mass`` (..., n): the largest soft-CVaR member weight
+      per cluster at the final delta for K > 1 problems (1/K uniform, 1 =
+      all on one member); 1.0 for a point-forecast problem."""
+    conservation = torch.abs(hour_sum(delta))
+    lo, ub, feasible = delta_bounds(p)
+    lo = torch.where(feasible[..., None], lo, 0.0)
+    ub = torch.where(feasible[..., None], ub, 0.0)
+    width0 = torch.clamp((delta.amax(-1) - lo.amin(-1))
+                         - (delta.amin(-1) - ub.amax(-1)), min=0.0)
+    proj_tol = width0 * (2.0 ** -proj_iters)
+    y = cluster_power(p, delta).amax(-1)
+    n_dc = p.campus_limit.shape[-1]
+    campus_pow = solver.segment_sum(y, p.campus, n_dc)
+    dual_resid = torch.clamp((campus_pow - p.campus_limit)
+                             / torch.clamp(p.campus_limit, min=1e-9),
+                             min=0.0)
+    if p.eta_ens is not None and p.eta_ens.shape[-3] > 1:
+        slim = delta.shape[:-1] + (1,)
+
+        def per_row(x):
+            return torch.as_tensor(x)[..., None, None].expand(slim)
+
+        tau24 = torch.clamp(p.tau[..., None] / 24.0, min=1e-9)
+        price = (p.lambda_p[..., None]
+                 + torch.gather(mu, -1, p.campus))[..., None]
+        temp = per_row(solver.peak_temperature(p.pow_nom, temp_frac))
+        cost, _, _ = _pgd_ref.member_costs(
+            delta, p.eta_ens, p.pi, p.pow_nom_ens, tau24, price, temp,
+            per_row(p.lambda_e))
+        tail = _pgd_ref.cvar_member_weights(
+            cost, per_row(_pgd_ref.cvar_sharpness(p.risk_beta))).amax(-2)
+    else:
+        tail = torch.ones_like(p.tau)
+    return {"conservation_resid": conservation, "proj_nu_tol": proj_tol,
+            "dual_resid": dual_resid, "cvar_tail_mass": tail}
+
+
 def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
               lr: float = 0.5, temp_frac: float = 0.02, rho: float = 0.2,
-              device=None) -> VCCSolution:
+              device=None, telemetry: bool = False):
     """Solve the fleetwide VCC problem (eq. 4) on ``device`` (default
     ``"cuda"``; ``"cpu"`` runs the plain epochs). ``outer_iters`` dual-ascent
     rounds, each one fused epoch of ``inner_iters`` PGD steps. An ensemble
     problem takes the CVaR epoch; a K = 1 ensemble is the point-forecast
-    problem exactly. ``objective`` is the nominal cost either way."""
+    problem exactly. ``objective`` is the nominal cost either way.
+
+    ``telemetry=True`` returns ``(solution, diag)``: the same solution,
+    and the per-round nominal objective and largest step of each cluster
+    (``obj_cluster_traj``, ``step_max_traj``, (..., outer_iters, n)) with
+    ``solution_diagnostics`` at the final point. The rounds' deltas are
+    kept (``dual_ascent``'s ``diag_fn``) and both trajectories evaluated
+    once over the rounds axis: the values of a per-round evaluation, bit
+    for bit (elementwise ops and ordered hour sums), in ~35 launches a
+    solve instead of ~35 a round."""
     if p.eta_ens is not None and p.eta_ens.shape[-3] == 1:
         p = dataclasses.replace(p, eta_ens=None, pow_nom_ens=None)
     p = p.to(_device.resolve(device))
@@ -132,16 +204,41 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
     # neutralize infeasible clusters: bounds collapse to {0}
     lo = torch.where(feasible[..., None], lo, 0.0)
     ub = torch.where(feasible[..., None], ub, 0.0)
-    delta, mu = _descend(p, lo, ub, torch.zeros_like(p.eta),
-                         torch.zeros_like(p.campus_limit), inner_iters,
-                         outer_iters, lr, temp_frac, rho)
-    return _solution(p, delta, mu, feasible)
+    delta0 = torch.zeros_like(p.eta)
+    out = _descend(p, lo, ub, delta0, torch.zeros_like(p.campus_limit),
+                   inner_iters, outer_iters, lr, temp_frac, rho,
+                   diag_fn=_keep_delta if telemetry else None)
+    sol = _solution(p, out[0], out[1], feasible)
+    if not telemetry:
+        return sol
+    rounds = out[2]["delta"]                      # (..., T, n, H)
+    prev = torch.cat([delta0.unsqueeze(-3), rounds[..., :-1, :, :]], -3)
+    return sol, {"obj_cluster_traj": _round_objectives(p, rounds),
+                 "step_max_traj": torch.abs(rounds - prev).amax(-1),
+                 **solution_diagnostics(p, sol.delta, sol.mu,
+                                        temp_frac=temp_frac)}
+
+
+def _keep_delta(d_prev, d_new, mu_new):
+    """``dual_ascent``'s per-round record: the round's delta."""
+    return {"delta": d_new}
+
+
+def _round_objectives(p: VCCProblem, rounds):
+    """``cluster_objective`` of each round's delta, rounds (..., T, n, H)
+    -> (..., T, n): the problem's fields take the rounds axis."""
+    q = dataclasses.replace(
+        p, eta=p.eta.unsqueeze(-3), pow_nom=p.pow_nom.unsqueeze(-3),
+        pi=p.pi.unsqueeze(-3), tau=p.tau.unsqueeze(-2),
+        lambda_e=p.lambda_e[..., None], lambda_p=p.lambda_p[..., None])
+    return cluster_objective(q, rounds)
 
 
 def _descend(p: VCCProblem, lo, ub, delta0, mu0, inner_iters, outer_iters,
-             lr, temp_frac, rho):
+             lr, temp_frac, rho, diag_fn=None):
     """``outer_iters`` dual-ascent rounds from (delta0, mu0), each one fused
-    epoch of ``inner_iters`` PGD steps in the box [lo, ub]."""
+    epoch of ``inner_iters`` PGD steps in the box [lo, ub]; with
+    ``diag_fn``, its per-round records too (``solver.dual_ascent``)."""
     temp = solver.peak_temperature(p.pow_nom, temp_frac)
     lr_eff = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
 
@@ -154,7 +251,8 @@ def _descend(p: VCCProblem, lo, ub, delta0, mu0, inner_iters, outer_iters,
         return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
                                          rho)
 
-    return solver.dual_ascent(inner, dual_update, delta0, mu0, outer_iters)
+    return solver.dual_ascent(inner, dual_update, delta0, mu0, outer_iters,
+                              diag_fn=diag_fn)
 
 
 def _solution(p: VCCProblem, delta, mu, feasible) -> VCCSolution:

@@ -29,8 +29,9 @@ class SimConfig:
     """Static structure (shapes + solver knobs). ``streaming``: the O(1)
     streaming prediction carry (state independent of ``hist_days``; not
     with ``n_members > 1``); ``mpc``: intra-day MPC recourse, hourly
-    warm-started suffix re-solves (``core.mpc``); ``telemetry`` must keep
-    its default (``stages.make_day_step`` raises)."""
+    warm-started suffix re-solves (``core.mpc``); ``telemetry``: the
+    rollout's traj also holds the days' ``sim.telemetry.DayTelemetry``
+    records under ``"telemetry"``, leaves (B, days, ...)."""
     n_clusters: int = 16
     n_campuses: int = 4
     n_zones: int = 4
@@ -94,9 +95,11 @@ def day_xs(params: SimParams, d: int):
 
 def make_rollout(cfg: SimConfig, days: int, on_day=None):
     """rollout(params, state) -> (state', Ledger, traj dict of (B, days)).
-    ``on_day(d, state, StepOut)``, if given, sees the state after every
-    day and its output; it is first called with ``d = -1`` and ``None``
-    for the state the rollout starts from."""
+    With ``cfg.telemetry`` the traj also holds ``"telemetry"``: the days'
+    records stacked on axis 1, leaves (B, days, ...); otherwise its keys
+    are the five totals alone. ``on_day(d, state, StepOut)``, if given,
+    sees the state after every day and its output; it is first called
+    with ``d = -1`` and ``None`` for the state the rollout starts from."""
     step = make_day_step(cfg)
 
     def rollout(params: SimParams, state: SimState):
@@ -112,6 +115,7 @@ def make_rollout(cfg: SimConfig, days: int, on_day=None):
         ledger = init_ledger(B, cfg.n_clusters, device=params.key.device)
         traj = {k: [] for k in ("carbon_kg", "cf_carbon_kg", "kwh",
                                 "peak_kw", "queue")}
+        records = []
         for d in range(days):
             state, out = step(params, state, day_xs(params, d))
             if on_day is not None:
@@ -123,8 +127,13 @@ def make_rollout(cfg: SimConfig, days: int, on_day=None):
             traj["kwh"].append(_hsum(m.kwh))
             traj["peak_kw"].append(_hsum(m.peak_kw))
             traj["queue"].append(_hsum(m.queue_end))
-        return state, ledger, {k: torch.stack(v, dim=1)
-                               for k, v in traj.items()}
+            if cfg.telemetry:
+                records.append(out.telemetry)
+        traj = {k: torch.stack(v, dim=1) for k, v in traj.items()}
+        if cfg.telemetry:
+            traj["telemetry"] = stages.zip_tensors(
+                lambda ts: torch.stack(ts, dim=1), records)
+        return state, ledger, traj
 
     return rollout
 

@@ -1,6 +1,7 @@
 """Reduce batched rollouts into per-scenario summary tables (port of
 ``repro.sim.report``: ``state_nbytes``, ``scenario_rows``, the mobility-
-and risk-sweep rows, the MPC recourse rows and ``format_table``).
+and risk-sweep rows, the MPC recourse rows, the telemetry rows and
+``format_table``).
 
 Input: a batched Ledger whose leading axis is scenario-major x seed-minor
 (the layout ``scenarios.build_batch`` produces).
@@ -57,6 +58,35 @@ RISK_COLUMNS = ("carbon_saved_pct", "flex_completion_pct",
 
 MOBILITY_COLUMNS = ("carbon_saved_pct", "carbon_vs_sequential_pct",
                     "peak_reduction_pct", "flex_within_24h_pct")
+
+TELEMETRY_COLUMNS = ("obj_decrease_pct", "uif_mape", "theta_coverage",
+                     "uifq_coverage", "vcc_binding_frac", "queue_age_max")
+
+
+def telemetry_rows(records, scenario_names: Optional[Sequence[str]] = None
+                   ) -> List[Dict[str, float]]:
+    """Per-scenario mean +/- std of the telemetry trace records
+    (``telemetry.telemetry_records``: one a scenario x seed x day). The std
+    pools seeds and days (ddof=1 with more than one record; one record
+    gives 0.0). Render with ``format_table(rows, TELEMETRY_COLUMNS)``."""
+    by_scen: Dict[str, List[dict]] = {}
+    for r in records:
+        by_scen.setdefault(r["scenario"], []).append(r)
+    names = scenario_names if scenario_names is not None else by_scen
+    rows: List[Dict[str, float]] = []
+    for name in names:
+        rs = by_scen.get(name, [])
+        if not rs:
+            continue
+        keys = [k for k in rs[0] if k not in ("scenario", "seed", "day")]
+        row: Dict[str, float] = {"scenario": name, "n_records": len(rs)}
+        for k in keys:
+            vals = np.asarray([r[k] for r in rs], dtype=np.float64)
+            row[k] = float(vals.mean())
+            row[k + "_std"] = \
+                float(vals.std(ddof=1)) if len(rs) > 1 else 0.0
+        rows.append(row)
+    return rows
 
 
 def mobility_sweep_rows(led_joint: Ledger, led_seq: Ledger,
@@ -129,7 +159,13 @@ def format_table(rows: List[Dict[str, float]],
                "flex_within_24h_pct": "flex<24h%",
                "flex_completion_pct": "flexDone%",
                "kwh_saved_pct": "kwhSaved%",
-               "delayed_cpu_h_per_day": "delayedCPUh/d"}
+               "delayed_cpu_h_per_day": "delayedCPUh/d",
+               "obj_decrease_pct": "objDec%",
+               "uif_mape": "uifMAPE",
+               "theta_coverage": "thetaCov",
+               "uifq_coverage": "uifQCov",
+               "vcc_binding_frac": "vccBind",
+               "queue_age_max": "queueAge"}
     cols = [headers.get(c, c) for c in columns]
     widths = [max(len(c), 12) for c in cols]
     out = ["scenario".ljust(name_w)

@@ -73,6 +73,14 @@ def test_closed_loop_slice_modules_are_scanned():
     assert {"repro_torch/core/stats.py", "repro_torch/core/mpc.py"} <= names
 
 
+def test_telemetry_and_fleet_modules_are_scanned():
+    """The telemetry layer and the legacy fleet API are among the scanned
+    sources."""
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    assert {"repro_torch/sim/telemetry.py",
+            "repro_torch/core/fleet.py"} <= names
+
+
 @pytest.mark.parametrize("module,source", (
     ("flash_attention", "flash_attention.cu"),
     ("flash_attention", "flash_prefill.cu"),

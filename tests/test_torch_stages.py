@@ -323,19 +323,19 @@ SMALL = dict(n_clusters=4, n_campuses=2, n_zones=2, pds_per_cluster=2,
 
 @pytest.mark.parametrize("flag, refusal", [
     (dict(joint_spatial=True, mpc=True), None),
-    (dict(n_members=4, telemetry=True), NotImplementedError),
+    (dict(n_members=4, telemetry=True), None),
     (dict(streaming=True), None),
-    (dict(telemetry=True), NotImplementedError),
+    (dict(telemetry=True), None),
     (dict(mpc=True), None),
     (dict(streaming=True, n_members=4), ValueError),
     (dict(streaming=True, hist_days=6), ValueError)],
     ids=[f"flag{i}" for i in range(7)])
 def test_make_day_step_refuses_unported_flags(flag, refusal):
-    """Telemetry is not ported, alone or beside forecast ensembles; the
-    reference's own refusals hold (streaming with n_members > 1 in
-    make_day_step, streaming with hist_days < 7 in make_init). Streaming
-    and MPC are ported: alone and beside the joint spatial solve they build
-    and run one day at 4 clusters on the CPU."""
+    """The reference's own refusals hold (streaming with n_members > 1 in
+    make_day_step, streaming with hist_days < 7 in make_init). Streaming,
+    MPC and telemetry are ported: alone, and beside the joint spatial solve
+    or forecast ensembles, they build and run one day at 4 clusters on the
+    CPU (with telemetry, the day's record in ``StepOut.telemetry``)."""
     cfg = tsim.SimConfig(**{**SMALL, **flag})
     stages.make_day_step(stages.StageConfig(joint_spatial=True, n_members=4))
     if refusal is not None:
@@ -350,6 +350,7 @@ def test_make_day_step_refuses_unported_flags(flag, refusal):
     new, out = tsim.make_day_step(cfg)(params, state,
                                        tengine.day_xs(params, 0))
     assert (out.recourse is not None) == cfg.mpc
+    assert (out.telemetry is not None) == cfg.telemetry
     assert int(new.day[0]) == SMALL["hist_days"] + 1
     for name, x in (("carbon", out.res.carbon), ("queue", new.queue),
                     ("vcc", out.vcc_curve)):
