@@ -67,11 +67,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    24-hour loop's share, #1 at the closed loop's suffix boxes of hours 1,
    12, 23 and 24 against its plain version (pinned entries bit for bit)
    with one suffix epoch timed, and one profiled closed-loop day;
-5c. telemetry: the main, slice and closed-loop paths again from each
-   one's burned-in state with ``telemetry=True`` and, beside it, with
-   ``telemetry=False`` (both under PyTorch's deterministic algorithms,
-   which fix the order of ``index_add_``'s campus sums): states, ledgers
-   and traj bit for bit, the same launches of #1-#3; the record checked on
+5c. repeat and telemetry: the main, slice and closed-loop paths again from
+   each one's burned-in state with ``telemetry=False`` and with
+   ``telemetry=True``, under PyTorch's default algorithms (the campus sums
+   of ``solver.segment_sum`` add in a fixed order): the telemetry-off run
+   bit for bit the path's first run (two runs of the same rollout agree),
+   telemetry on and off bit for bit in states, ledgers and traj, the same
+   launches of #1-#3; the record checked on
    the card (finite, the gauges' ranges, ``joint_winner`` the day's
    ``StepOut.best.take``, the recourse gauges ``StepOut.recourse``), its
    trace written to ``chiprun_out/telemetry_<path>.jsonl`` and read back,
@@ -89,6 +91,25 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    full-width check of a decode step's logits against the prefill of the
    same tokens; one profiled Zamba2 prefill (the device's busy share and
    #5's share of it) and one profiled Zamba2 decode step;
+6b. the trainer on the card (``launch.train.train``, bf16, random weights
+   from a seed, the reference trainer's batch 8, sequence 256, lr 3e-3 and
+   warmup 20): Qwen3-0.6B at full published width for 20 steps with the
+   carbon gate on (each hour's step budget printed), a finite loss every
+   step and the mean of the last 3 below the first, exactly 28 launches of
+   #4 a step on its ``flash_prefill`` route and none of #5, steps/s,
+   tokens/s, peak memory and the share of the bf16 peak from 6 N T; the
+   autograd Functions of #4 (at a Qwen3 attention layer's training shape)
+   and #5 (at Zamba2-7B's Mamba2 training shape), their forward the kernel
+   and backward the plain version's autograd, against the plain route:
+   output within 2e-2, each input's gradient within 2e-2 of its largest
+   |value| (and whether bit for bit), forward + backward timed each way;
+   a Qwen3 step's forward, backward and update times and one profiled
+   step (table in chiprun_out/profile_train_step.txt);
+   Zamba2-7B at its published widths and 12 of 81 layers for 2 steps, with
+   exact launches of #4 and #5; and ``python -m repro_torch.launch.train
+   --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
+   leaf of the final checkpoint against an uninterrupted run (bit for bit,
+   or within 1e-5);
 7. the golden configuration, the slice configuration at golden size and
    the streaming closed loop (``streaming=True, mpc=True``) at golden size
    over ``forecast_bust_library(3)``, on the card (kernels) against the
@@ -108,6 +129,7 @@ Needs one CUDA card; exits non-zero without one, and without the repo's
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1846,21 +1868,6 @@ def tel_expected(path):
     return [MAIN_DAYS * per_day, 0, 0, {"fused": 0, "split": 0}]
 
 
-@contextmanager
-def deterministic():
-    """PyTorch's deterministic algorithms while entered (``index_add_``,
-    the campus sums, then sums in a fixed order on the card); yields the
-    warnings of ops that have none."""
-    import warnings
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield caught
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def tel_rollout(run, telemetry, outs=None):
     """One run of a path's rollout from its burned-in state, with or
     without telemetry; ``outs`` collects the days' StepOuts. Returns the
@@ -1993,34 +2000,38 @@ def phase_telemetry():
     exported and tabled; the overhead; the stage profiler on the main and
     closed-loop states; a fleet day through ``core.fleet``."""
     from repro_torch import sim
-    print("[telemetry] each path's off and on runs from its burned-in state "
-          "under torch.use_deterministic_algorithms (index_add_'s campus "
-          "sums in a fixed order)", flush=True)
+    print("[telemetry] each path's off and on runs from its burned-in state, "
+          "with PyTorch's default algorithms (the campus sums add in a "
+          "fixed order)", flush=True)
     for path in ("main", "slice", "closed"):
         run = RUNS[path]
-        with deterministic() as caught:
-            off, c_off = tel_rollout(run, False)
-            outs = []
-            on, c_on = tel_rollout(run, True, outs)
-        ops = sorted({str(w.message).split(" does not have")[0]
-                      for w in caught})
+        off, c_off = tel_rollout(run, False)
+        outs = []
+        on, c_on = tel_rollout(run, True, outs)
         tel = on[2].pop("telemetry")
         a, b = leaves(off), leaves(on)
         same = len(a) == len(b) and all(torch.equal(x, y)
                                         for x, y in zip(a, b))
         first = leaves(run["out"])
+        repeat = len(first) == len(a) and all(
+            torch.equal(x, y) for x, y in zip(first, a))
         gap = max(((x.double() - y.double()).abs().max().item()
                    / max(y.double().abs().max().item(), 1e-30)
                    if x.is_floating_point() else float((x != y).any()))
                   for x, y in zip(first, a) if x.numel())
         want = tel_expected(path)
+        print(f"[repeat] {path}: the path's {run['days']}-day rollout run "
+              f"again from its burned-in state, no deterministic flag: "
+              f"states / ledgers / traj ({len(a)} tensors) bit for bit the "
+              f"first run's: {repeat} (largest gap relative to the largest "
+              f"value {gap:.3e})", flush=True)
         print(f"[telemetry] {path}: off vs on, states / ledgers / traj "
               f"({len(a)} tensors) bit for bit: {same}; launches of #1 / #2 "
-              f"/ #3 (#3 by route) off {c_off}, on {c_on}, expected {want}; "
-              f"the phase's first off run (atomic index_add_) against this "
-              f"re-run, largest gap relative to the largest value {gap:.3e}"
-              f"; ops without a deterministic algorithm: "
-              f"{ops or 'none'}", flush=True)
+              f"/ #3 (#3 by route) off {c_off}, on {c_on}, expected {want}",
+              flush=True)
+        if not repeat:
+            raise AssertionError(f"[repeat] {path}: two runs of the same "
+                                 "rollout differ")
         if not same:
             raise AssertionError(f"[telemetry] {path}: telemetry changed the "
                                  "run")
@@ -2057,53 +2068,52 @@ def phase_fleet():
     scfg = sim.SimConfig(n_clusters=MAIN_CLUSTERS, n_campuses=64, n_zones=16,
                          pds_per_cluster=2, hist_days=fcfg.hist_days,
                          telemetry=True)
-    with deterministic():
-        t0 = time.perf_counter()
-        st = fleet.init_fleet(fcfg)
+    t0 = time.perf_counter()
+    st = fleet.init_fleet(fcfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = sim.build_batch(scfg, [sim.Scenario(
+        "fleet", lambda_e=fcfg.lambda_e, lambda_p=fcfg.lambda_p,
+        gamma=fcfg.gamma)], [fcfg.seed], FLEET_DAYS)
+    state = sim.make_init(scfg)(params)
+    for k in ("hist_uif", "hist_usage", "carbon_hist", "campus_limit",
+              "queue"):
+        if not torch.equal(getattr(st, k), getattr(state, k)[0]):
+            raise AssertionError(f"[fleet] init_fleet's {k} is not the "
+                                 "engine's")
+    step = sim.make_day_step(scfg)
+    for d in range(FLEET_DAYS):
+        reset_counts()
+        rec = {}
+        t2 = time.perf_counter()
+        st = fleet.day_cycle(st, rec)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params = sim.build_batch(scfg, [sim.Scenario(
-            "fleet", lambda_e=fcfg.lambda_e, lambda_p=fcfg.lambda_p,
-            gamma=fcfg.gamma)], [fcfg.seed], FLEET_DAYS)
-        state = sim.make_init(scfg)(params)
-        for k in ("hist_uif", "hist_usage", "carbon_hist", "campus_limit",
-                  "queue"):
+        day_ms = 1e3 * (time.perf_counter() - t2)
+        launches = read_counts()
+        state, out = step(params, state, engine.day_xs(params, d))
+        got = leaves((rec["fc"], rec["sol"].__dict__, rec["vcc"],
+                      rec["result"].__dict__, rec["cf_result"].__dict__,
+                      rec["intensity"], rec["telemetry"],
+                      rec["problem"].__dict__))
+        want = leaves((out.fc, out.sol.__dict__, out.vcc_curve,
+                       out.res.__dict__, out.cf.__dict__, out.eta_act,
+                       out.telemetry, out.prob.__dict__))
+        if len(got) != len(want) or not all(
+                torch.equal(x, y[0]) for x, y in zip(got, want)):
+            raise AssertionError(f"[fleet] day {d}: day_cycle's record is "
+                                 "not the engine step's")
+        for k in ("queue", "cf_queue", "hist_usage", "campus_limit"):
             if not torch.equal(getattr(st, k), getattr(state, k)[0]):
-                raise AssertionError(f"[fleet] init_fleet's {k} is not the "
-                                     "engine's")
-        step = sim.make_day_step(scfg)
-        for d in range(FLEET_DAYS):
-            reset_counts()
-            rec = {}
-            t2 = time.perf_counter()
-            st = fleet.day_cycle(st, rec)
-            torch.cuda.synchronize()
-            day_ms = 1e3 * (time.perf_counter() - t2)
-            launches = read_counts()
-            state, out = step(params, state, engine.day_xs(params, d))
-            got = leaves((rec["fc"], rec["sol"].__dict__, rec["vcc"],
-                          rec["result"].__dict__, rec["cf_result"].__dict__,
-                          rec["intensity"], rec["telemetry"],
-                          rec["problem"].__dict__))
-            want = leaves((out.fc, out.sol.__dict__, out.vcc_curve,
-                           out.res.__dict__, out.cf.__dict__, out.eta_act,
-                           out.telemetry, out.prob.__dict__))
-            if len(got) != len(want) or not all(
-                    torch.equal(x, y[0]) for x, y in zip(got, want)):
-                raise AssertionError(f"[fleet] day {d}: day_cycle's record is "
-                                     "not the engine step's")
-            for k in ("queue", "cf_queue", "hist_usage", "campus_limit"):
-                if not torch.equal(getattr(st, k), getattr(state, k)[0]):
-                    raise AssertionError(f"[fleet] day {d}: state {k}")
-            line = sim.telemetry_records(sim.DayTelemetry(
-                *(x[None, None] for x in rec["telemetry"])), ["fleet"], 1)[0]
-            print(f"[fleet] day {st.day}: day_cycle {day_ms:.1f} ms (host "
-                  f"clock), launches of #1 to #5 {launches} (expected "
-                  f"[{SOLVE_ROUNDS}, 0, 0, 0, 0]); record and state equal "
-                  f"the engine's step bit for bit; trace line "
-                  f"{json.dumps(line)}", flush=True)
-            if launches != [SOLVE_ROUNDS, 0, 0, 0, 0]:
-                raise AssertionError(f"[fleet] day {d}: launches {launches}")
+                raise AssertionError(f"[fleet] day {d}: state {k}")
+        line = sim.telemetry_records(sim.DayTelemetry(
+            *(x[None, None] for x in rec["telemetry"])), ["fleet"], 1)[0]
+        print(f"[fleet] day {st.day}: day_cycle {day_ms:.1f} ms (host "
+              f"clock), launches of #1 to #5 {launches} (expected "
+              f"[{SOLVE_ROUNDS}, 0, 0, 0, 0]); record and state equal "
+              f"the engine's step bit for bit; trace line "
+              f"{json.dumps(line)}", flush=True)
+        if launches != [SOLVE_ROUNDS, 0, 0, 0, 0]:
+            raise AssertionError(f"[fleet] day {d}: launches {launches}")
     print(f"[fleet] init_fleet ({fcfg.n_clusters} clusters / "
           f"{fcfg.n_campuses} campuses / {fcfg.n_zones} zones, "
           f"{fcfg.hist_days} days of burn-in) {t1 - t0:.2f} s, equal to the "
@@ -2273,6 +2283,303 @@ def profile_decode(model, B=SERVE_BATCH):
         profile_call(step, "profile_serve_decode.txt",
                      f"one Zamba2-7B decode step (batch {B}, cache "
                      f"{SERVE_MAX_SEQ})")
+
+
+# ----------------------------------------------- phase 6b: the trainer
+
+# the reference trainer's defaults (src/repro/launch/train.py): batch 8,
+# sequence 256, lr 3e-3, warmup 20
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 256, 3e-3
+TRAIN_STEPS_PER_HOUR = 5              # the carbon gate's base budget here
+# Zamba2-7B at its published widths, cut to its first 12 of 81 Mamba2
+# layers (two groups of 6 around the shared block): weights, gradients
+# and AdamW's float32 moments at full depth take ~89 GB
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 2
+GRAD_TOL = 2e-2                       # Function vs plain gradients, x max
+RESUME_TOL = 1e-5                     # tests/test_checkpoint_data.py:69
+BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
+
+
+def train_counts(cfg, steps):
+    """Launches of (#4, #5) in ``steps`` train steps: the forward of every
+    attention layer (Zamba2's shared block once a group) and every Mamba2
+    layer; the backward recomputes the plain versions and launches none."""
+    if cfg.family == "hybrid":
+        return steps * (cfg.num_layers // cfg.attn_every), \
+            steps * cfg.num_layers
+    return steps * cfg.num_layers, 0
+
+
+def step_parts(label, model, cfg, fname):
+    """One train step's parts on the host clock (each ended by a
+    synchronize; median of 3 after a warm-up): the forward with the loss,
+    the backward, the AdamW update (and its copy into the parameters);
+    then one whole step under torch.profiler (table to chiprun_out/)."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.training import init_train_state, make_train_step
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=20, decay_steps=100)
+    toks = batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0)
+    batch = {"tokens": torch.tensor(toks["tokens"], dtype=torch.int64,
+                                    device="cuda")}
+    params = dict(model.named_parameters())
+    state = init_train_state(model, opt)
+    parts = {"forward + loss": [], "backward": [], "AdamW update": []}
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        new, state["opt"], _ = adamw_update(params, grads, state["opt"], opt)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(new[k])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del new, grads, loss
+        for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3))):
+            parts[k].append(1e3 * (b - a))
+    med = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    print(f"[train] {label}: a step's parts (host clock, synchronised, "
+          f"median of 3): " + ", ".join(f"{k} {v:.1f} ms"
+                                        for k, v in med.items()), flush=True)
+    step = make_train_step(model, opt)
+    profile_call(lambda: step(state, batch), fname, f"{label} train step")
+    return med
+
+
+def run_train(label, cfg, steps, profile=None, **kw):
+    """``launch.train.train`` of a model built from ``cfg`` (seed 0) on the
+    card with the counters at 0 just before it; exact launches of #4 and
+    #5 (and their routes), a finite loss every step; with ``profile``, a
+    step's parts and a profiled step after it (``step_parts``). Returns
+    the result and the launches of #4 and #5 counted in the run."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[train] {label}: {n / 1e9:.3f} B parameters ({cfg.dtype}, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}), built on the "
+          f"card from seed 0 in {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = train(model=model, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, device="cuda", log_every=5, **kw)
+    counts = read_counts()
+    routes = dict(fa_kernel.flash_attention_cuda.routes)
+    gla_routes = dict(gla_kernel.gla_cuda.routes)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = train_counts(cfg, steps)
+    step_ms = statistics.median(res.step_ms[1:] or res.step_ms)
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)         # positions predicted
+    flops = 6 * n * tokens
+    print(f"[train] {label}: {len(res.step_losses)} steps, loss "
+          f"{[round(x, 4) for x in res.step_losses]}; step ms first "
+          f"{res.step_ms[0]:.1f}, median of the rest {step_ms:.2f} "
+          f"({1e3 / step_ms:.2f} steps/s, {1e3 * tokens / step_ms:.0f} "
+          f"tokens/s of the T below); 6 N T = {flops / 1e12:.2f} TFLOP a step (N = {n}, "
+          f"T = {tokens}), {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{100 * flops / (step_ms / 1e3) / BF16_PEAK:.1f}% of the bf16 "
+          f"peak; peak device memory {peak:.2f} GiB; launches of #1 to #5 "
+          f"{counts} (expected [0, 0, 0, {want[0]}, {want[1]}]); #4 by "
+          f"route {routes}, #5 by route {gla_routes}", flush=True)
+    if not all(map(math.isfinite, res.step_losses)) \
+            or len(res.step_losses) != steps:
+        raise AssertionError(f"[train] {label}: a loss is not finite")
+    if counts != [0, 0, 0, *want]:
+        raise AssertionError(f"[train] {label}: launches {counts}, expected "
+                             f"{[0, 0, 0, *want]}")
+    # bf16 forwards: #4 on its tensor-core prefill route, #5 on gla_ssd
+    if routes != {"flash_prefill": want[0], "flash_decode": 0,
+                  "flash_attention": 0} or gla_routes != {
+                      "gla_ssd": want[1], "gla_scan": 0}:
+        raise AssertionError(f"[train] {label}: routes {routes} / "
+                             f"{gla_routes}")
+    if profile:
+        step_parts(label, model, cfg, profile)
+    del model
+    torch.cuda.empty_cache()
+    return res, counts[3:5]
+
+
+def function_grads(label, fn, plain, inputs, leaves, reps=10):
+    """The gradients of ``sum(w * out[0])`` to ``leaves`` through ``fn``
+    (the autograd Function with the kernel forward) and through ``plain``
+    (the plain route under autograd), each from fresh ``inputs()``; the
+    forward outputs within bf16's 2e-2 of max, each gradient within
+    GRAD_TOL of its largest |value|; and the CUDA-event ms of a forward +
+    backward each way."""
+    outs = {}
+    for name, f in (("function", fn), ("plain", plain)):
+        out = f(*inputs())
+        w = torch.randn(out[0].shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+        grads = torch.autograd.grad((out[0].float() * w).sum(), leaves)
+        outs[name] = (out[0].detach(), grads, w)
+
+        def fwd_bwd(f=f, w=w):
+            o = f(*inputs())[0]
+            torch.autograd.grad((o.float() * w).sum(), leaves)
+        outs[name] += (cuda_ms(fwd_bwd, reps=reps),)
+    (o1, g1, _, ms1), (o2, g2, _, ms2) = outs["function"], outs["plain"]
+    fgap = ((o1.float() - o2.float()).abs().max()
+            / o2.float().abs().max()).item()
+    gaps = [((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp(min=1e-30)).item()
+            for a, b in zip(g1, g2)]
+    exact = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    print(f"[train] {label}: forward (kernel) vs plain {fgap:.3e} (limit "
+          f"2e-2 x max); gradients vs the plain route's, largest gap "
+          f"relative to the largest |value| per input "
+          f"{[f'{x:.3e}' for x in gaps]} (limit {GRAD_TOL}), bit for bit: "
+          f"{exact}; forward + backward {ms1:.3f} ms through the Function, "
+          f"{ms2:.3f} ms plain (CUDA events, median of {reps})", flush=True)
+    if fgap > 2e-2 or max(gaps) > GRAD_TOL:
+        raise AssertionError(f"[train] {label}: forward {fgap:.3e} or "
+                             f"gradients {gaps} beyond their limits")
+
+
+def phase_function_grads():
+    """Kernels #4 and #5 wrapped for autograd (``ops.FlashAttention``,
+    ``ops.GLAScan``) against the plain route on the card, bf16: #4 at a
+    full-width Qwen3-0.6B attention layer of a train step (8 x 256
+    positions, 16 query heads on 8 KV heads of 128, causal), #5 at
+    Zamba2-7B's Mamba2 training shapes (the heads and state of
+    ``gla_cases``: 112 heads, state 64, head 64, chunk 256; B and C shared
+    by the heads)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    from repro_torch.kernels.linear_scan import ops as gla_ops
+    from repro_torch.kernels.linear_scan import ref as gla_ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+
+    def leaf(*shape, dt=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(
+            dt).requires_grad_()
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = leaf(B, S, 16, 128), leaf(B, S, 8, 128), leaf(B, S, 8, 128)
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
+              length=None, scale=None)
+    function_grads(
+        "#4 FlashAttention, Qwen3-0.6B layer (8 x 256, 16 / 8 heads of 128)",
+        lambda *x: (fa_ops.FlashAttention.apply(
+            *x, fa_kernel.flash_attention_cuda, kw),),
+        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
+        lambda: (q, k, v), (q, k, v))
+    H, K, V = 112, 64, 64
+    c, b, xv = leaf(B, S, 1, K), leaf(B, S, 1, K), leaf(B, S, H, V)
+    raw = leaf(B, S, H, dt=torch.float32)
+    opts = dict(strict=False, chunk=256)
+
+    def gla_inputs_():
+        return (c.expand(B, S, H, K), b.expand(B, S, H, K), xv,
+                -0.7 * raw.abs())
+
+    function_grads(
+        "#5 GLAScan, Zamba2-7B Mamba2 layer (8 x 256, 112 heads, state 64)",
+        lambda *x: gla_ops.GLAScan.apply(*x, None, None, gla_kernel.gla_cuda,
+                                         opts),
+        lambda *x: gla_ref.gla_chunked(*x, **opts),
+        gla_inputs_, (c, b, xv, raw))
+
+
+def kill_and_resume():
+    """``python -m repro_torch.launch.train --smoke`` on the card in
+    subprocesses: killed at step 17 (after the step-10 checkpoint), resumed
+    to 30, against an uninterrupted run to 30; every leaf of the step-30
+    checkpoints bit for bit, or within RESUME_TOL (the reference test's
+    limit, where the card's atomic adds in the embedding's backward may
+    reorder a sum)."""
+    import os
+    import shutil
+
+    import numpy as np
+    out = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-0.6b", "--smoke", "--steps", "30", "--batch", "2",
+            "--seq", "64", "--ckpt-every", "10", "--log-every", "10",
+            "--device", "cuda"]
+
+    def run(extra, rc):
+        t0 = time.perf_counter()
+        r = subprocess.run(base + extra, env=env, capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != rc:
+            raise AssertionError(f"[train] {' '.join(extra)}: exit "
+                                 f"{r.returncode}, expected {rc}: "
+                                 f"{r.stderr[-2000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    _, ta = run(["--ckpt-dir", str(out / "a"), "--kill-at-step", "17"], 42)
+    resumed, tb = run(["--ckpt-dir", str(out / "a")], 0)
+    _, tc = run(["--ckpt-dir", str(out / "b")], 0)
+    if "resumed from step 10" not in resumed:
+        raise AssertionError("[train] the relaunch did not resume from 10")
+    da, db = (out / x / "step_00000030" / "arrays" for x in "ab")
+    names = sorted(p.name for p in db.iterdir())
+    gap, exact = 0.0, True
+    for name in names:
+        a, b = np.load(da / name), np.load(db / name)
+        exact &= a.tobytes() == b.tobytes()
+        if a.dtype == np.uint16:             # bf16 bits
+            a, b = (torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+                    .float().numpy() for x in (a, b))
+        gap = max(gap, float(np.abs(a.astype(np.float64)
+                                    - b.astype(np.float64)).max()))
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[train] kill at step 17 and resume to 30 on the card (smoke "
+          f"config, subprocesses of {ta:.1f} / {tb:.1f} / {tc:.1f} s): "
+          f"{len(names)} leaves of the step-30 checkpoint against an "
+          f"uninterrupted run: bit for bit {exact}, largest |gap| "
+          f"{gap:.3e} (limit {RESUME_TOL})", flush=True)
+    if gap > RESUME_TOL:
+        raise AssertionError(f"[train] resumed run off by {gap:.3e}")
+
+
+def phase_train():
+    """The trainer on the card: Qwen3-0.6B at full published width in bf16
+    for TRAIN_STEPS steps with the carbon gate on (each hour's budget
+    printed), loss finite and falling; the autograd Functions' gradients
+    against the plain route; Zamba2-7B at its published widths and
+    ZAMBA_TRAIN_LAYERS layers; the kill-and-resume replay. Returns the
+    launches of #4 and #5 on the two training runs."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("qwen3-0.6b").config.replace(remat="none")
+    res, launched = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
+                              profile="profile_train_step.txt",
+                              carbon_aware=True,
+                              steps_per_hour=TRAIN_STEPS_PER_HOUR)
+    first, last3 = res.step_losses[0], statistics.mean(res.step_losses[-3:])
+    print(f"[train] qwen3-0.6b: carbon-aware budgets an hour "
+          f"{res.budgets} (base {TRAIN_STEPS_PER_HOUR}); loss falls: the "
+          f"mean of the last 3 steps {last3:.4f} < the first step's "
+          f"{first:.4f}: {last3 < first}", flush=True)
+    if not last3 < first:
+        raise AssertionError("[train] qwen3-0.6b: the loss did not fall")
+    totals = list(launched)
+    phase_function_grads()
+    zcfg = get_arch("zamba2-7b").config.replace(
+        num_layers=ZAMBA_TRAIN_LAYERS, remat="none")
+    _, zlaunched = run_train(f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} of 81 layers)",
+                             zcfg, ZAMBA_TRAIN_STEPS)
+    totals = [a + b for a, b in zip(totals, zlaunched)]
+    kill_and_resume()
+    return totals
 
 
 def phase_serve_golden(gen=4):
@@ -2496,16 +2803,21 @@ def main():
     records[0]["launches"] = phase_main_path()
     counts, _ = phase_slice_path()
     # kernel #1 counts on the main path; #2 and #3 (by route) and the split
-    # route's s_project on the slice path; #4 and #5 on the serving path
+    # route's s_project on the slice path; #4 and #5 on the serving and
+    # training paths
     records[1]["launches"], records[2]["launches"] = counts[1], counts[2]
     records[2]["launches_by_route"] = counts[5]
     records[5]["launches"] = counts[6]
     # #1's launches and its suffix epoch on the closed-loop path
     records[0].update(phase_closed_loop(card))
     phase_telemetry()
-    (records[3]["launches"], records[4]["launches"]), \
-        records[3]["launches_by_route"], records[4]["launches_by_route"] = \
-        phase_serve()
+    serving, records[3]["launches_by_route"], \
+        records[4]["launches_by_route"] = phase_serve()
+    # #4 and #5 run on two paths, each counted from 0: serving and training
+    training = phase_train()
+    for rec, s, t in zip(records[3:5], serving, training):
+        rec["launches"] = s + t
+        rec["launches_by_path"] = {"serve": s, "train": t}
     phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
     phase_cross_device(closed_loop=True, telemetry=True)

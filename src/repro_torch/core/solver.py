@@ -22,9 +22,11 @@ before the cluster axis; a per-rollout scalar has the batch shape.
 """
 from __future__ import annotations
 
-import math
+import weakref
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.vcc_pgd import ops as _ops
 from repro_torch.kernels.vcc_pgd import ref as _pgd_ref
@@ -68,17 +70,90 @@ def scaled_lr(lr, pi, tau, eta, lambda_e, lambda_p):
         lam_e * eta.amax(-1, keepdim=True) + lam_p, min=1e-9))
 
 
+def _run_ranks(s):
+    """Each entry's position within its run of equal values along the last
+    axis of ``s`` (sorted rows)."""
+    n = s.shape[-1]
+    pos = np.broadcast_to(np.arange(n), s.shape)
+    starts = np.diff(s, axis=-1, prepend=s[..., :1] - 1) != 0
+    return pos - np.maximum.accumulate(np.where(starts, pos, 0), axis=-1)
+
+
+def _build_layout(ids, num: int):
+    """``campus_layout`` without the memo (one device-to-host copy)."""
+    n = ids.shape[-1]
+    a = ids.reshape(-1, n).cpu().numpy()
+    order = np.argsort(a, axis=-1, kind="stable")   # by id, then by index
+    s = np.take_along_axis(a, order, -1)
+    rank = _run_ranks(s)
+    keep = (s >= 0) & (s < num)                     # other ids are dropped
+    k = int(rank[keep].max()) + 1 if keep.any() else 0
+    index = np.full((a.shape[0], num, k), n, dtype=np.int64)
+    rows = np.broadcast_to(np.arange(a.shape[0])[:, None], s.shape)
+    index[rows[keep], s[keep], rank[keep]] = order[keep]
+    return (torch.as_tensor(index, device=ids.device).reshape(
+        ids.shape[:-1] + (num * k,)), k)
+
+
+# campus layouts already built, by (root tensor id, its version, view
+# geometry, num); an entry goes when its root tensor is collected
+_LAYOUTS: dict = {}
+
+
+def _forget(root_id: int):
+    for key in [k for k in _LAYOUTS if k[0] == root_id]:
+        del _LAYOUTS[key]
+
+
+def campus_layout(ids, num: int):
+    """The padded gather layout of the segment ids (..., n) into ``num``
+    segments: (index (..., num * k), k), where row c of a leading index
+    lists the positions whose id is c in ascending order, padded to the
+    largest segment's k with n (a slot that reads zero). Ids outside
+    [0, num) are dropped, as ``jax.ops.segment_sum`` drops them.
+
+    Built once per ids tensor (one device-to-host copy, so one host sync)
+    and memoized by the tensor's storage, view and version: the campus ids
+    are static, so the dual-ascent rounds and the days that reuse them
+    never sync for it.
+
+    The memo is right only while every write to the ids bumps the root
+    tensor's version counter, as torch's in-place ops do. A write that
+    goes around it (through a numpy array shared by ``torch.from_numpy``,
+    or through ``.data``) leaves a stale layout behind: do not change ids
+    that way once they have been summed over."""
+    root = ids if ids._base is None else ids._base
+    key = (id(root), root._version, ids.storage_offset(), tuple(ids.shape),
+           tuple(ids.stride()), ids.device, num)
+    hit = _LAYOUTS.get(key)
+    if hit is None:
+        if not any(k[0] == id(root) for k in _LAYOUTS):
+            weakref.finalize(root, _forget, id(root))
+        hit = _LAYOUTS[key] = _build_layout(ids, num)
+    return hit
+
+
 def segment_sum(data, ids, num: int):
     """Sum ``data`` (..., n) into ``num`` segments per leading index by
-    ``ids`` (..., n). Leading indices are offset (b * num + id) into one
-    flat ``index_add_``, so sums never mix rollouts."""
+    ``ids`` (..., n, broadcast to ``data``'s shape). Each segment adds its
+    members in ascending index order, starting from zero, one elementwise
+    add a slot of ``campus_layout``: the order of the reference's
+    ``jax.ops.segment_sum`` on the CPU, bit for bit, on any device, and a
+    rollout's sums do not depend on the batch beside it (the padding adds
+    +0.0, which leaves every sum that starts from +0.0 unchanged). k + 2
+    launches for the largest segment's k members."""
+    index, k = campus_layout(ids, num)
     lead = data.shape[:-1]
-    nb = math.prod(lead)
-    offs = torch.arange(nb, device=data.device)[:, None] * num
-    flat = (ids.expand(data.shape).reshape(nb, -1) + offs).reshape(-1)
-    out = torch.zeros(nb * num, dtype=data.dtype, device=data.device)
-    out.index_add_(0, flat, data.reshape(-1))
-    return out.reshape(*lead, num)
+    if k == 0:
+        return torch.zeros(lead + (num,), dtype=data.dtype,
+                           device=data.device)
+    padded = F.pad(data, (0, 1))                    # the zero slot at n
+    parts = torch.gather(padded, -1, index.expand(lead + (num * k,)))
+    parts = parts.reshape(lead + (num, k))
+    out = parts[..., 0] + 0.0                       # 0 + x, as a scatter-add
+    for j in range(1, k):
+        out = out + parts[..., j]
+    return out
 
 
 def campus_dual_update(mu, y, campus, campus_limit, rho):

@@ -4,7 +4,8 @@ optional carbon-aware admission of request batches. The counterpart of
 
 With ``--carbon-aware``, round r admits ``batch * min(capacity[r % 24],
 1.5)`` requests (at least one), where ``capacity`` is the hourly capacity
-of a one-cluster VCC (``CarbonGate``): flexible batch inference shifts
+of a one-cluster VCC (``launch.train.CarbonGate``, as the reference
+imports it from its trainer): flexible batch inference shifts
 toward clean hours; latency-critical serving is never gated.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
@@ -25,30 +26,9 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs import get_arch
-from repro_torch.core import carbon, prng
+from repro_torch.launch.train import CarbonGate
 from repro_torch.models import build_model
 from repro_torch.training import make_prefill_step, make_serve_step
-
-
-class CarbonGate:
-    """Hourly capacity of a one-cluster VCC over one simulated grid day:
-    the inverse of the hour's carbon intensity, normalised to a mean of 1
-    (the day's budget is kept). The counterpart of
-    ``repro.launch.train.CarbonGate``; the grid day comes from the port's
-    threefry stream, which is bitwise the reference's."""
-
-    def __init__(self, seed: int = 0):
-        zone = carbon.default_zones(1)[0]
-        intensity = carbon.simulate_zone_from(
-            prng.PRNGKey(seed), carbon.zone_params(zone), 1)[0]
-        self.intensity = intensity.numpy()
-        inv = 1.0 / np.clip(self.intensity, 1e-3, None)
-        self.capacity = inv / inv.mean()
-
-    def admitted(self, round_: int, batch: int) -> int:
-        """Requests admitted in serving round ``round_`` (hour r % 24)."""
-        return max(1, int(round(batch * min(self.capacity[round_ % 24],
-                                            1.5))))
 
 
 class ServeResult(NamedTuple):

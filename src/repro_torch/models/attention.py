@@ -1,7 +1,7 @@
 """Attention mixer: GQA with qk-norm, local/global windows and logit
 softcap. The counterpart of ``repro.models.attention`` (``init_gqa``,
 ``_project_qkv``, ``apply_gqa``, ``apply_gqa_decode``); MLA waits for its
-models (ROADMAP.md queue 1, item 9).
+models (ROADMAP.md queue 1, item 4).
 
 Both the full-sequence and the decode call go through
 ``kernels.flash_attention.ops.attention``: kernel #4 on the card, the plain

@@ -1,7 +1,8 @@
 """Shared model building blocks: initialisers, norms, RoPE, soft-capping,
-MLPs. The counterpart of ``repro.models.layers`` (the norms and MLPs of the
-serving path; ``layer_norm``, ``group_norm_heads``, ``sinusoidal_positions``
-and ``chunked_xent`` wait for the models that use them).
+MLPs and the chunked vocabulary loss. The counterpart of
+``repro.models.layers`` (``layer_norm``, ``group_norm_heads`` and
+``sinusoidal_positions`` wait for the models that use them: ROADMAP.md
+queue 1, item 4).
 
 Initialisers draw from an explicit ``torch.Generator`` on the device the
 weights live on. They follow the reference's distributions (truncated
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 f32 = torch.float32
 
@@ -47,7 +49,9 @@ def init_rms(d, *, device):
 
 
 def param(x) -> nn.Parameter:
-    return nn.Parameter(x, requires_grad=False)
+    """A weight that takes gradients (the trainer's); serving runs under
+    ``torch.inference_mode``, which records nothing for it."""
+    return nn.Parameter(x)
 
 
 # --------------------------------------------------------------------- norms
@@ -119,3 +123,49 @@ class MLP(nn.Module):
         else:
             h = torch.square(F.relu(h))
         return h @ self.wo
+
+
+# -------------------------------------------------------- chunked vocab loss
+
+def _xent_chunk(h, head, labels, mask, cap):
+    """One chunk's sums: (sum nll, sum lse^2, sum correct, sum mask). The
+    logits are float32 products of the native-type operands, as the
+    reference's ``preferred_element_type=float32`` einsum."""
+    logits = softcap(h.to(f32) @ head.to(f32).T, cap)          # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    correct = (torch.argmax(logits, -1) == labels).to(f32) * mask
+    return (((lse - ll) * mask).sum(), (torch.square(lse) * mask).sum(),
+            correct.sum(), mask.sum())
+
+
+def chunked_xent(hidden, head, labels, *, mask=None,
+                 logit_softcap: Optional[float] = None, chunk: int = 512,
+                 z_loss: float = 1e-4):
+    """Cross-entropy over a large vocabulary without materializing all the
+    logits: the counterpart of ``repro.models.layers.chunked_xent``.
+
+    hidden: (B, S, D); head: (V, D) (the unembedding or tied embedding);
+    labels: (B, S) int; mask: (B, S) or None. The sequence is cut into
+    chunks of ``chunk`` positions; each chunk's (B, chunk, V) logits are
+    transient: ``torch.utils.checkpoint`` keeps only its inputs and
+    recomputes them in the backward pass (the reference's
+    ``jax.checkpoint(body)``). The last chunk is not padded to ``chunk``
+    (the reference pads it with masked positions, which add exact zeros).
+    Returns (mean loss + ``z_loss`` x mean lse^2, {"xent", "accuracy",
+    "tokens"})."""
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=f32, device=hidden.device)
+    mask = mask.to(f32)
+    labels = labels.long()
+    sums = [torch.zeros((), dtype=f32, device=hidden.device)] * 4
+    for i in range(0, S, chunk):
+        part = checkpoint(_xent_chunk, hidden[:, i:i + chunk], head,
+                          labels[:, i:i + chunk], mask[:, i:i + chunk],
+                          logit_softcap, use_reentrant=False)
+        sums = [a + b for a, b in zip(sums, part)]
+    nll, zl, correct, n = sums
+    n = torch.clamp(n, min=1.0)
+    loss = nll / n + z_loss * zl / n
+    return loss, {"xent": nll / n, "accuracy": correct / n, "tokens": n}

@@ -10,8 +10,8 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.models.transformer import DecoderLM, ZambaLM
 
-_LATER = ("ROADMAP.md queue 1, item 9: the MoE, MLA, VLM, RWKV6 and "
-          "encoder-decoder models come after the serving slice")
+_LATER = ("ROADMAP.md queue 1, item 4: the RWKV6, MoE, VLM, MLA and "
+          "encoder-decoder models are ported one a PR")
 
 
 def build_model(cfg, device=None, *, seed: int = 0, generator=None):
@@ -27,7 +27,7 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     if cfg.flash_decode:
         raise NotImplementedError(f"{cfg.name}: flash_decode shards the "
                                   "cache over a mesh; out of scope on one "
-                                  "card (ROADMAP.md queue 1, item 9)")
+                                  "card (ROADMAP.md: out of scope on one card)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     cls = DecoderLM if cfg.family == "dense" else ZambaLM

@@ -1,6 +1,6 @@
 """Recurrent mixer: Mamba2 (Zamba2's backbone). The counterpart of
 ``repro.models.ssm``'s Mamba2 part (``mamba_dims`` .. ``apply_mamba_decode``);
-RWKV6 waits for its model (ROADMAP.md queue 1, item 9).
+RWKV6 waits for its model (ROADMAP.md queue 1, item 4).
 
 Mamba2 reduces to the chunked gated linear attention of
 ``kernels.linear_scan``: a scalar per-head decay ``exp(-dt exp(A_log))``,

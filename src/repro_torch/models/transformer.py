@@ -1,7 +1,7 @@
-"""Decoder LMs of the serving slice: the dense ``DecoderLM`` and the hybrid
-``ZambaLM`` (Mamba2 backbone plus one weight-shared attention block). The
-counterpart of ``repro.models.transformer``'s blocks and those two models,
-without their MLA and MoE branches (ROADMAP.md queue 1, item 9).
+"""Decoder LMs: the dense ``DecoderLM`` and the hybrid ``ZambaLM`` (Mamba2
+backbone plus one weight-shared attention block). The counterpart of
+``repro.models.transformer``'s blocks and those two models, without their
+MLA, MoE and VLM branches (ROADMAP.md queue 1, item 4).
 
 The reference stacks per-layer parameters for ``lax.scan``; here each
 layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
@@ -9,11 +9,13 @@ layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
 reference names its parameters, so ``convert.model_params_from_numpy``
 carries a reference model across. Every model exposes
 
+    loss(batch) -> (loss, metrics)
     init_cache(batch, max_seq) -> decode cache
     prefill(batch, max_seq) -> (last-token logits, cache)
     decode_step(cache, token, pos) -> (logits, cache)
 
-with ``batch = {"tokens": (B, S) int64}``, ``token`` (B,) and ``pos`` a
+with ``batch = {"tokens": (B, S) int64}`` (``loss`` predicts tokens 1..S-1
+from 0..S-2), ``token`` (B,) and ``pos`` a
 Python int (the cache fill position). Caches keep the reference's stacked
 layout and are written in place by ``decode_step``.
 """
@@ -124,7 +126,7 @@ class DecoderLM(_LM):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"DecoderLM here takes the dense family, not {cfg.family!r}"
-                " (MoE, MLA and VLM: ROADMAP.md queue 1, item 9)")
+                " (MoE, MLA and VLM: ROADMAP.md queue 1, item 4)")
         super().__init__(cfg, generator=generator, device=device,
                          tied=cfg.tie_embeddings)
         dt = self.dtype
@@ -160,6 +162,18 @@ class DecoderLM(_LM):
             kvs.append(kv)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return (x, kvs) if collect_kv else x
+
+    def loss(self, batch):
+        """Next-token loss of ``batch["tokens"]`` (B, S): the chunked
+        cross-entropy (with the config's logit softcap) plus the auxiliary
+        loss, 0 for the dense family. Returns (loss, metrics)."""
+        tokens = batch["tokens"]
+        x = self.forward(tokens[:, :-1])
+        loss, metrics = L.chunked_xent(x, self._head(), tokens[:, 1:],
+                                       logit_softcap=self.cfg.logit_softcap)
+        aux = torch.zeros((), dtype=f32, device=x.device)
+        metrics["aux_loss"] = aux
+        return loss + aux, metrics
 
     def init_cache(self, batch: int, max_seq: int):
         shapes = attn_cache_shapes(self.cfg, batch, max_seq)
@@ -251,6 +265,13 @@ class ZambaLM(_LM):
             t_states.append(st)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (x, (g_states, g_kv, t_states)) if collect else x
+
+    def loss(self, batch):
+        """Next-token chunked cross-entropy of ``batch["tokens"]`` (B, S),
+        no softcap. Returns (loss, metrics)."""
+        tokens = batch["tokens"]
+        x = self.forward(tokens[:, :-1])
+        return L.chunked_xent(x, self.lm_head, tokens[:, 1:])
 
     def init_cache(self, batch: int, max_seq: int):
         cs, ss = S.mamba_state_shapes(self.cfg, batch)

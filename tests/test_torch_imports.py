@@ -81,6 +81,19 @@ def test_telemetry_and_fleet_modules_are_scanned():
             "repro_torch/core/fleet.py"} <= names
 
 
+def test_training_slice_modules_are_scanned():
+    """The trainer's modules (data, optimizer, compression, checkpoints,
+    the train step and the launcher) are among the scanned sources."""
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    assert {"repro_torch/data/__init__.py", "repro_torch/data/pipeline.py",
+            "repro_torch/optim/__init__.py", "repro_torch/optim/adamw.py",
+            "repro_torch/optim/compression.py",
+            "repro_torch/checkpoint/__init__.py",
+            "repro_torch/checkpoint/checkpoint.py",
+            "repro_torch/launch/train.py",
+            "repro_torch/training.py"} <= names
+
+
 @pytest.mark.parametrize("module,source", (
     ("flash_attention", "flash_attention.cu"),
     ("flash_attention", "flash_prefill.cu"),

@@ -737,3 +737,76 @@ def test_gla_cuda_tensors_never_take_the_plain_scan(cuda_device,
     torch.cuda.synchronize()
     assert {r: gla_kernel.gla_cuda.routes[r] - before[r]
             for r in before} == {"gla_ssd": 1, "gla_scan": 1}
+
+
+# ------------------------------ gradients through kernels #4 and #5 (train)
+
+def _grad_leaves(shapes, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(
+        dtype).requires_grad_() for s in shapes]
+
+
+def _grad_gaps(got, want):
+    return [((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp(min=1e-30)).item()
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_attention_gradients_through_the_kernel_on_card(cuda_device, dtype):
+    """``ops.attention`` on CUDA tensors that take gradients goes through
+    ``FlashAttention``: one launch of the kernel, the kernel's output, and
+    the gradients of the plain version (GQA, causal, softcap) within the
+    kernel's tolerance of their largest |value|; under inference mode the
+    kernel alone, with no graph."""
+    q, k, v = _grad_leaves(((2, 80, 4, 64), (2, 80, 2, 64), (2, 80, 2, 64)),
+                           dtype, 0)
+    kw = dict(causal=True, softcap=30.0)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    before = fa_kernel.flash_attention_cuda.launches
+    o = fa_ops.attention(q, k, v, **kw)
+    assert fa_kernel.flash_attention_cuda.launches == before + 1
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(o.detach(), fa_kernel.flash_attention_cuda(
+        q.detach(), k.detach(), v.detach(), **kw))
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = torch.autograd.grad(fa_ref.attention_chunked(q, k, v, **kw),
+                               (q, k, v), do)
+    assert max(_grad_gaps(got, want)) <= tol
+    with torch.inference_mode():
+        assert fa_ops.attention(q, k, v, **kw).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_gla_gradients_through_the_kernel_on_card(cuda_device, dtype):
+    """``ops.gla`` on CUDA tensors that take gradients goes through
+    ``GLAScan`` (Mamba2's mode: q and k broadcast over the heads, a scalar
+    decay, an initial state): one launch, the kernel's outputs, and the
+    plain version's gradients to every input within 1e-4 (float32) or 2e-2
+    (bf16) of their largest |value|."""
+    B, S, H_, K, V = 2, 70, 4, 16, 16
+    c, b, v = _grad_leaves(((B, S, 1, K), (B, S, 1, K), (B, S, H_, V)),
+                           dtype, 1)
+    raw, h0 = _grad_leaves(((B, S, H_), (B, H_, K, V)), torch.float32, 2)
+
+    def inputs():
+        return (c.expand(B, S, H_, K), b.expand(B, S, H_, K), v,
+                -0.5 * raw.abs())
+
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = gla_kernel.gla_cuda.launches
+    o, hT = gla_ops.gla(*inputs(), chunk=32, initial_state=h0)
+    assert gla_kernel.gla_cuda.launches == before + 1
+    assert type(o.grad_fn).__name__ == "GLAScanBackward"
+    w = torch.randn(o.shape, device="cuda")
+    leaves = (c, b, v, raw, h0)
+    got = torch.autograd.grad((o.float() * w).sum() + hT.square().sum(),
+                              leaves)
+    o2, h2 = gla_ref.gla_chunked(*inputs(), chunk=32, initial_state=h0)
+    want = torch.autograd.grad((o2.float() * w).sum() + h2.square().sum(),
+                               leaves)
+    assert max(_grad_gaps(got, want)) <= tol

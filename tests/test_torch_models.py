@@ -49,7 +49,7 @@ def _np(x):
 
 def _close(j, t, what, rtol=RTOL):
     j = _np(j)
-    t = t.float().numpy()
+    t = t.detach().float().numpy()
     assert j.shape == t.shape, (what, j.shape, t.shape)
     gap = np.abs(j - t).max()
     assert gap <= rtol * max(np.abs(j).max(), 1e-6), (what, gap,

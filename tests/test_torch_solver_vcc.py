@@ -5,10 +5,13 @@ XLA's cumsum adds in another order than torch's, so atol 1e-5 (values of
 order 1). ``solve_vcc`` runs 20 x 80 PGD steps whose hour sums are taken
 in another order than XLA's: delta, vcc and mu match to rtol 1e-4 and atol
 1e-4. A batch of problems equals its per-problem solves to 1e-6 (same torch
-arithmetic, campus sums offset per rollout).
+arithmetic). The campus sums (``segment_sum``) are held bit for bit: against
+``jax.ops.segment_sum`` (a sequential scatter-add on the CPU), and batched
+against per rollout.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,6 +127,85 @@ def test_segment_sum_keeps_rollouts_apart():
     campus = torch.tensor([[0, 1, 2, 0, 1, 2]] * 2)
     got = solver.segment_sum(y, campus, 3)
     np.testing.assert_array_equal(got.numpy(), [[3, 5, 7], [15, 17, 19]])
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _campus_case(shape, m, seed, empty=None):
+    """Data spanning six decades and campus ids of uneven sizes (ids
+    drawn with skewed weights), campus ``empty`` left without clusters."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.2, 3.0, m)
+    if empty is not None:
+        w[empty] = 0.0
+    ids = rng.choice(m, size=shape, p=w / w.sum())
+    data = (rng.standard_normal(shape)
+            * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+    return data, ids
+
+
+@pytest.mark.parametrize("shape,m,empty", [
+    ((37,), 5, None),            # one problem, uneven campuses
+    ((3, 29), 6, 2),             # a batch, campus 2 empty
+    ((2, 3, 17), 4, 0),          # two batch dims, campus 0 empty
+    ((4, 64), 64, None)])        # about one cluster a campus, some empty
+def test_segment_sum_matches_jax_segment_sum_bitwise(shape, m, empty):
+    """Each campus adds its clusters in ascending order from zero: the
+    reference's sequential scatter-add on the CPU, bit for bit."""
+    data, ids = _campus_case(shape, m, sum(shape) + m, empty)
+    got = solver.segment_sum(torch.as_tensor(data), torch.as_tensor(ids), m)
+    flat_d, flat_i = data.reshape(-1, shape[-1]), ids.reshape(-1, shape[-1])
+    want = np.stack([np.asarray(jax.ops.segment_sum(
+        jnp.asarray(d), jnp.asarray(i), m)) for d, i in zip(flat_d, flat_i)])
+    assert got.shape == shape[:-1] + (m,)
+    np.testing.assert_array_equal(_bits(got.numpy().reshape(-1, m)),
+                                  _bits(want))
+
+
+def test_segment_sum_batched_equals_per_rollout_bitwise():
+    """A rollout's sums do not depend on the batch beside it: a batch whose
+    rollouts have their largest campus at other sizes (so the batch pads
+    each to the largest) equals each rollout summed alone, and ids shared
+    by the batch (one (n,) row, broadcast) equal the same ids per row."""
+    m, n = 5, 41
+    data, _ = _campus_case((3, n), m, 11)
+    ids = np.stack([_campus_case((n,), m, s, empty)[1]
+                    for s, empty in ((1, None), (2, 3), (3, 0))])
+    batched = solver.segment_sum(torch.as_tensor(data),
+                                 torch.as_tensor(ids), m)
+    for b in range(3):
+        alone = solver.segment_sum(torch.as_tensor(data[b]),
+                                   torch.as_tensor(ids[b]), m)
+        np.testing.assert_array_equal(_bits(batched[b]), _bits(alone))
+    shared = torch.as_tensor(ids[0])
+    np.testing.assert_array_equal(
+        _bits(solver.segment_sum(torch.as_tensor(data), shared, m)),
+        _bits(solver.segment_sum(torch.as_tensor(data),
+                                 shared.expand(3, n).clone(), m)))
+
+
+def test_campus_layout_is_built_once_per_ids_tensor(monkeypatch):
+    """The layout (the one host copy of the ids) is built on the first sum
+    over a campus-id tensor and reused by later sums and by views of the
+    same tensor; an in-place change of the ids builds it anew; out-of-range
+    ids are dropped, as ``jax.ops.segment_sum`` drops them."""
+    builds = []
+    real = solver._build_layout
+    monkeypatch.setattr(solver, "_build_layout",
+                        lambda ids, num: builds.append(1) or real(ids, num))
+    base = torch.tensor([0, 2, 1, 2, 0, 2])
+    ids = base.expand(3, 6)
+    y = torch.arange(18, dtype=torch.float32).reshape(3, 6)
+    for _ in range(3):
+        solver.segment_sum(y, ids, 3)
+    solver.segment_sum(y, base.expand(3, 6), 3)
+    assert len(builds) == 1
+    base[1] = 7                         # out of range: dropped
+    got = solver.segment_sum(y, ids, 3)
+    assert len(builds) == 2
+    np.testing.assert_array_equal(got[0].numpy(), [4.0, 2.0, 8.0])
 
 
 def test_solve_vcc_defaults_to_cuda():
