@@ -35,13 +35,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    route's float32 split partials against ``ref.attention_partials``;
    and the GLA scan (#5) at
    Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
-   and in RWKV6-7B's per-channel and bonus + strict modes, each line
-   naming its route;
+   and in RWKV6-7B's per-channel and bonus + strict modes (at a batch of
+   2, and at its serving prefill's 4 x 1,024 tokens), each line naming its
+   route;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
    day's solution checked; then one more day under ``torch.profiler``
    (device busy share, top ops; full table in chiprun_out/);
+4b. the same batch through ``sim.rollout_batch_sharded`` with the default
+   devices (every card: one) and as two shards on cuda:0: state, ledger
+   and traj bit for bit the main path's, 140 launches of #1 a shard; and
+   ``forecast.calibrate_half_lives`` on three clusters' 35-day history of
+   the main path's burned-in state, on the card against the CPU (the same
+   pair, the 6 x 6 MAPE surface within 1e-5 relative);
 5. slice path, the risk-aware joint day: ``SimConfig(joint_spatial=True,
    n_members=8)`` over ``mobility_sweep_library(7) + risk_sweep_library(7)``
    x seeds 0-3 (28 rollouts) for 7 days at the same fleet size, with exact
@@ -84,13 +91,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    ``init_fleet`` and two ``day_cycle``s against the engine's burn-in and
    day steps of the same fleet, bit for bit (20 launches of #1 a day);
 6. serving path, carbon-aware serving at full published width in bf16
-   (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B and
-   then Qwen3-0.6B, 2 rounds of 4 prompts of 1,024 tokens and 32 decoded
-   tokens each, with exact launch counts of #4 and #5 (and their calls by
-   route), prefill and per-token times, tokens/s and peak memory; a
-   full-width check of a decode step's logits against the prefill of the
-   same tokens; one profiled Zamba2 prefill (the device's busy share and
-   #5's share of it) and one profiled Zamba2 decode step;
+   (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
+   Qwen3-0.6B and RWKV6-7B, 2 rounds of 4 prompts of 1,024 tokens and 32
+   decoded tokens each, with exact launch counts of #4 and #5 (and their
+   calls by route: RWKV6's 64 scans all on ``gla_scan``), prefill and
+   per-token times, tokens/s and peak memory; a full-width check of a
+   decode step's logits against the prefill of the same tokens; one
+   profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
+   busy share and #5's share of it) and one profiled decode step of each;
 6b. the trainer on the card (``launch.train.train``, bf16, random weights
    from a seed, the reference trainer's batch 8, sequence 256, lr 3e-3 and
    warmup 20): Qwen3-0.6B at full published width for 20 steps with the
@@ -105,8 +113,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    |value| (and whether bit for bit), forward + backward timed each way;
    a Qwen3 step's forward, backward and update times and one profiled
    step (table in chiprun_out/profile_train_step.txt);
-   Zamba2-7B at its published widths and 12 of 81 layers for 2 steps, with
-   exact launches of #4 and #5; and ``python -m repro_torch.launch.train
+   Zamba2-7B at its published widths and 12 of 81 layers, and RWKV6-7B at
+   its published widths and 8 of 32 layers, for 2 steps each, with exact
+   launches of #4 and #5 (RWKV6's on ``gla_scan``; its step's parts and
+   a profiled step after them), and #5's Function at
+   RWKV6's training shape (bonus, strict) against the plain route; and
+   ``python -m repro_torch.launch.train
    --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
    leaf of the final checkpoint against an uninterrupted run (bit for bit,
    or within 1e-5);
@@ -118,9 +130,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    records within the classes of tests/test_torch_telemetry_rollout.py;
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
-   and the serving smoke configs in float32, cuda against cpu (logits of
-   prefill and 4 decode steps, greedy tokens);
-8. one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+   and the serving smoke configs (Zamba2, Qwen3 and RWKV6) in float32,
+   cuda against cpu (logits of prefill and 4 decode steps, greedy
+   tokens);
+8. one ``{"kernels": [...]}`` JSON line (#5's launches by path, model and
+   route among its keys), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and without the repo's
@@ -958,13 +972,17 @@ def flash_partials_check(splits=5):
         raise AssertionError("flash decode partials disagree with plain")
 
 
+RWKV_SERVE_CASE = "rwkv6-7b serving prefill"
+
+
 def gla_cases():
     """(label, B, S, H, K, V, dtype, mode, chunk, initial state):
     Zamba2-7B's Mamba2 prefill (112 heads, state 64, head 64, chunk 256;
     B and C shared by the heads), a ragged length, a prefill from a state,
     a one-token scan from a state, float32; RWKV6-7B's widths (64 heads of
-    64, chunk 64) with per-channel decay, and with its bonus in the strict
-    mode."""
+    64, chunk 64) with per-channel decay, with its bonus in the strict
+    mode from a state, and at its serving prefill's shape (the batch of
+    4 x 1,024 tokens a layer of the serving path scans, from no state)."""
     B, P = SERVE_BATCH, SERVE_PROMPT
     bf, f = torch.bfloat16, torch.float32
     return [
@@ -977,6 +995,7 @@ def gla_cases():
         ("zamba2 float32", 1, P, 112, 64, 64, f, "scalar", 256, True),
         ("rwkv6 vector decay", 2, P, 64, 64, 64, bf, "vector", 64, False),
         ("rwkv6 bonus + strict", 2, P, 64, 64, 64, bf, "rwkv", 64, True),
+        (RWKV_SERVE_CASE, B, P, 64, 64, 64, bf, "rwkv", 64, False),
     ]
 
 
@@ -1077,7 +1096,10 @@ def phase_gla_kernel(card):
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
         del q, k, v, ld, o, wo
-    return records["zamba2 mamba2 prefill"]
+    rec = records["zamba2 mamba2 prefill"]
+    rec["rwkv6_serving"] = {k: records[RWKV_SERVE_CASE][k] for k in (
+        "source", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return rec
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1171,6 +1193,86 @@ def phase_main_path():
                         out=(state, ledger, traj),
                         names=[s.name for s in scenarios], days=MAIN_DAYS)
     return launches
+
+
+def tensor_leaves(tree):
+    out = []
+    from repro_torch.core.stages import map_tensors
+    map_tensors(out.append, tree)
+    return out
+
+
+def phase_sharded():
+    """The main path's batch through ``sim.rollout_batch_sharded``: with
+    the default devices (every card: one here) and as two shards on
+    cuda:0. Each run starts from the same params; its state, ledger and
+    traj must equal [main]'s bit for bit, with 140 launches of #1 a
+    shard."""
+    from repro_torch import sim
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    main = RUNS["main"]
+    cfg, params = main["cfg"], main["params"]
+    want = tensor_leaves(main["out"])
+    for label, devices in (("default devices", None),
+                           ("two shards on cuda:0", ("cuda:0", "cuda:0"))):
+        shards = torch.cuda.device_count() if devices is None \
+            else len(devices)
+        run = sim.rollout_batch_sharded(cfg, MAIN_DAYS, devices=devices)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tensor_leaves(run(params))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        equal = sum(torch.equal(a, b) for a, b in zip(got, want))
+        expect = [shards * MAIN_DAYS * SOLVE_ROUNDS, 0, 0, 0, 0]
+        print(f"[sharded] {label}: {shards} shard(s) of "
+              f"{params.key.shape[0] // shards} rollouts, burn-in and "
+              f"{MAIN_DAYS} days in {secs:.2f} s; launches of #1 to #5 "
+              f"{launches} (expected {expect}: "
+              f"{MAIN_DAYS * SOLVE_ROUNDS} of #1 a shard); state, ledger and "
+              f"traj: {equal} of {len(want)} tensors bit for bit [main]'s",
+              flush=True)
+        if launches != expect:
+            raise AssertionError(f"[sharded] {label}: launches {launches}")
+        if len(got) != len(want) or equal != len(want):
+            raise AssertionError(f"[sharded] {label}: {len(want) - equal} "
+                                 "tensors differ from [main]'s")
+
+
+CALIBRATE_CLUSTERS = (0, 171, 342)       # of the main path's first rollout
+
+
+def phase_calibrate():
+    """``forecast.calibrate_half_lives`` on the card against the CPU, on
+    three clusters' hourly inflexible history of the main path's burned-in
+    state (35 days: the 14-day walk-forward needs three weeks or more,
+    which the golden configuration's 14 days do not hold): the same pair,
+    and the 6 x 6 MAPE surface within 1e-5 relative."""
+    from repro_torch.core import forecast
+    hist = RUNS["main"]["state0"].hist_uif[0, list(CALIBRATE_CLUSTERS)]
+    g = len(forecast.GRID)
+    for i, c in enumerate(CALIBRATE_CLUSTERS):
+        surf, pair = {}, {}
+        for where, dev in (("card", "cuda"), ("host", "cpu")):
+            h = hist[i].to(dev)
+            garr = torch.tensor(forecast.GRID, device=dev)
+            surf[where] = forecast._walk_forward_mape(
+                h, garr.repeat_interleave(g), garr.repeat(g)).cpu()
+            pair[where] = forecast.calibrate_half_lives(h)
+        ref = surf["host"]
+        gap = ((surf["card"] - ref).abs() / ref).max().item()
+        best2 = torch.sort(ref).values[:2]
+        print(f"[calibrate] cluster {c}: pair on the card {pair['card']}, "
+              f"on the CPU {pair['host']}; MAPE surface "
+              f"{ref.min().item():.5f}..{ref.max().item():.5f}, card vs "
+              f"CPU largest relative gap {gap:.3e} (limit 1e-5); the best "
+              f"two differ by {(best2[1] / best2[0] - 1).item():.3e} "
+              f"relative", flush=True)
+        if pair["card"] != pair["host"] or not gap <= 1e-5:
+            raise AssertionError(f"[calibrate] cluster {c}: the card and "
+                                 "the CPU disagree")
 
 
 def kernel_counters():
@@ -2122,39 +2224,51 @@ def phase_fleet():
 
 # ------------------------------------------------- phase 6: serving path
 
-SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b")
+SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b")
 CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
 
 
 def launches_per_call(cfg):
     """Launches of (#4, #5) in one prefill and in one decoded token: Zamba2
     runs the scan once a Mamba2 layer in a prefill and its shared block
-    once a group in both; a dense model runs attention once a layer in
-    both."""
+    once a group in both; RWKV6 the scan once a layer in a prefill and
+    nothing in decode (its step is plain); a dense model runs attention
+    once a layer in both."""
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
         return (groups, cfg.num_layers), (groups, 0)
+    if cfg.family == "ssm":
+        return (0, cfg.num_layers), (0, 0)
     return (cfg.num_layers, 0), (cfg.num_layers, 0)
 
 
+def gla_route_of(cfg):
+    """The route of #5 a bf16 model's scans take: Mamba2's scalar decay the
+    tensor-core ``gla_ssd``, RWKV6's per-channel decay, bonus and strict
+    mode ``gla_scan``."""
+    return "gla_scan" if cfg.family == "ssm" else "gla_ssd"
+
+
 def phase_serve():
-    """Carbon-aware serving at full published width on the card: both
-    models, exact launch counts (#4's and #5's by route too), a
-    decode-vs-prefill check, and a profiled Zamba2 prefill and decode step.
-    Returns the launches of #4 and #5, and their calls by route."""
+    """Carbon-aware serving at full published width on the card: the
+    three models, exact launch counts (#4's and #5's by route too), a
+    decode-vs-prefill check, a profiled Zamba2 prefill and decode step and
+    a profiled RWKV6 prefill. Returns the launches of #4 and #5, their
+    calls by route, and #5's calls by model and route."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
-    totals, routes, gla_routes = [0, 0], {}, {}
+    totals, routes, gla_routes, gla_by_model = [0, 0], {}, {}, {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).config.replace(remat="none")
         t0 = time.perf_counter()
         model = build_model(cfg, "cuda", seed=0)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"[serve] {arch}: {n_params / 1e9:.3f} B parameters "
+        print(f"[serve] {arch}: {type(model).__name__}, "
+              f"{n_params / 1e9:.3f} B parameters "
               f"({cfg.dtype}), built on the card from seed 0 in "
               f"{time.perf_counter() - t0:.2f} s; weights "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB",
@@ -2195,8 +2309,8 @@ def phase_serve():
                                  f"{want_routes}")
         for r, n in by_route.items():
             routes[r] = routes.get(r, 0) + n
-        # bf16 Mamba2 prefills take the tensor-core scan
-        want_gla = {"gla_ssd": want[1], "gla_scan": 0}
+        # bf16 Mamba2 prefills take the tensor-core scan, RWKV6's gla_scan
+        want_gla = {"gla_ssd": 0, "gla_scan": 0, gla_route_of(cfg): want[1]}
         print(f"[serve] {arch}: #5 calls by route {gla_by_route} (expected "
               f"{want_gla})", flush=True)
         if gla_by_route != want_gla:
@@ -2204,6 +2318,8 @@ def phase_serve():
                                  f"expected {want_gla}")
         for r, n in gla_by_route.items():
             gla_routes[r] = gla_routes.get(r, 0) + n
+        if want[1]:
+            gla_by_model[arch] = gla_by_route
         for r, toks in enumerate(res.tokens):
             if toks.shape != (res.batches[r], SERVE_GEN + 1) or not (
                     (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -2211,12 +2327,12 @@ def phase_serve():
         totals[0] += counts[3]
         totals[1] += counts[4]
         decode_consistency(arch, cfg, model)
-        if cfg.family == "hybrid":
-            profile_prefill(model, res.prefill_ms)
-            profile_decode(model)
+        if cfg.family in ("hybrid", "ssm"):
+            profile_prefill(arch, model, res.prefill_ms)
+            profile_decode(arch, model)
         del model
         torch.cuda.empty_cache()
-    return totals, routes, gla_routes
+    return totals, routes, gla_routes, gla_by_model
 
 
 def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
@@ -2243,9 +2359,11 @@ def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
 GLA_KERNELS = ("gla_ssd_kernel", "gla_scan_kernel")
 
 
-def profile_prefill(model, prefill_ms, B=SERVE_BATCH):
-    """One Zamba2 prefill of the serving shape under torch.profiler, after
-    a warm one: the device's busy share and kernel #5's share of it."""
+def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH):
+    """One prefill of the serving shape under torch.profiler, after a warm
+    one: the device's busy share and kernel #5's share of it (table in
+    chiprun_out/profile_serve_prefill.txt for Zamba2-7B,
+    profile_serve_prefill_<arch>.txt for the others)."""
     toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
                          device="cuda")
 
@@ -2254,11 +2372,12 @@ def profile_prefill(model, prefill_ms, B=SERVE_BATCH):
             model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
 
     prefill()
+    fname = "profile_serve_prefill.txt" if arch == "zamba2-7b" else \
+        f"profile_serve_prefill_{arch}.txt"
     wall_ms, busy_ms, ours, _ = profile_call(
-        prefill, "profile_serve_prefill.txt",
-        f"one Zamba2-7B prefill ({B} x {SERVE_PROMPT} tokens)")
+        prefill, fname, f"one {arch} prefill ({B} x {SERVE_PROMPT} tokens)")
     gla_ms = sum(ours.get(k, 0.0) for k in GLA_KERNELS)
-    print(f"[profile] Zamba2-7B prefill: kernel #5 {gla_ms:.2f} ms of the "
+    print(f"[profile] {arch} prefill: kernel #5 {gla_ms:.2f} ms of the "
           f"device's {busy_ms:.1f} busy ms ({100 * gla_ms / busy_ms:.1f}%), "
           f"{100 * gla_ms / wall_ms:.1f}% of the profiled wall "
           f"{wall_ms:.1f} ms; the device busy "
@@ -2267,8 +2386,10 @@ def profile_prefill(model, prefill_ms, B=SERVE_BATCH):
           flush=True)
 
 
-def profile_decode(model, B=SERVE_BATCH):
-    """One Zamba2 decode step under torch.profiler, after a prefill."""
+def profile_decode(arch, model, B=SERVE_BATCH):
+    """One decode step under torch.profiler, after a prefill (table in
+    chiprun_out/profile_serve_decode.txt for Zamba2-7B,
+    profile_serve_decode_<arch>.txt for the others)."""
     toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
                          device="cuda")
     with torch.inference_mode():
@@ -2280,9 +2401,10 @@ def profile_decode(model, B=SERVE_BATCH):
             with torch.inference_mode():
                 model.decode_step(cache, tok, SERVE_PROMPT + 1)
 
-        profile_call(step, "profile_serve_decode.txt",
-                     f"one Zamba2-7B decode step (batch {B}, cache "
-                     f"{SERVE_MAX_SEQ})")
+        fname = "profile_serve_decode.txt" if arch == "zamba2-7b" else \
+            f"profile_serve_decode_{arch}.txt"
+        profile_call(step, fname, f"one {arch} decode step (batch {B}, "
+                     f"cache {SERVE_MAX_SEQ})")
 
 
 # ----------------------------------------------- phase 6b: the trainer
@@ -2295,6 +2417,9 @@ TRAIN_STEPS_PER_HOUR = 5              # the carbon gate's base budget here
 # layers (two groups of 6 around the shared block): weights, gradients
 # and AdamW's float32 moments at full depth take ~89 GB
 ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 2
+# RWKV6-7B at its published widths, cut to 8 of 32 layers (~2.3 B
+# parameters, ~29 GB with AdamW's moments; ~95 GB at full depth)
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 2
 GRAD_TOL = 2e-2                       # Function vs plain gradients, x max
 RESUME_TOL = 1e-5                     # tests/test_checkpoint_data.py:69
 BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
@@ -2303,10 +2428,13 @@ BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
 def train_counts(cfg, steps):
     """Launches of (#4, #5) in ``steps`` train steps: the forward of every
     attention layer (Zamba2's shared block once a group) and every Mamba2
-    layer; the backward recomputes the plain versions and launches none."""
+    or RWKV6 layer; the backward recomputes the plain versions and
+    launches none."""
     if cfg.family == "hybrid":
         return steps * (cfg.num_layers // cfg.attn_every), \
             steps * cfg.num_layers
+    if cfg.family == "ssm":
+        return 0, steps * cfg.num_layers
     return steps * cfg.num_layers, 0
 
 
@@ -2399,16 +2527,18 @@ def run_train(label, cfg, steps, profile=None, **kw):
         raise AssertionError(f"[train] {label}: launches {counts}, expected "
                              f"{[0, 0, 0, *want]}")
     # bf16 forwards: #4 on its tensor-core prefill route, #5 on gla_ssd
+    # (Mamba2) or gla_scan (RWKV6)
     if routes != {"flash_prefill": want[0], "flash_decode": 0,
                   "flash_attention": 0} or gla_routes != {
-                      "gla_ssd": want[1], "gla_scan": 0}:
+                      "gla_ssd": 0, "gla_scan": 0,
+                      gla_route_of(cfg): want[1]}:
         raise AssertionError(f"[train] {label}: routes {routes} / "
                              f"{gla_routes}")
     if profile:
         step_parts(label, model, cfg, profile)
     del model
     torch.cuda.empty_cache()
-    return res, counts[3:5]
+    return res, counts[3:5], gla_routes
 
 
 def function_grads(label, fn, plain, inputs, leaves, reps=10):
@@ -2438,10 +2568,12 @@ def function_grads(label, fn, plain, inputs, leaves, reps=10):
             for a, b in zip(g1, g2)]
     exact = all(torch.equal(a, b) for a, b in zip(g1, g2))
     print(f"[train] {label}: forward (kernel) vs plain {fgap:.3e} (limit "
-          f"2e-2 x max); gradients vs the plain route's, largest gap "
-          f"relative to the largest |value| per input "
-          f"{[f'{x:.3e}' for x in gaps]} (limit {GRAD_TOL}), bit for bit: "
-          f"{exact}; forward + backward {ms1:.3f} ms through the Function, "
+          f"2e-2 x max); gradients vs the plain route's (a wiring check: "
+          f"both backwards are the plain version's autograd on the same "
+          f"saved inputs), largest gap relative to the largest |value| per "
+          f"input {[f'{x:.3e}' for x in gaps]} (limit {GRAD_TOL}), bit for "
+          f"bit: {exact}; forward + backward {ms1:.3f} ms through the "
+          f"Function, "
           f"{ms2:.3f} ms plain (CUDA events, median of {reps})", flush=True)
     if fgap > 2e-2 or max(gaps) > GRAD_TOL:
         raise AssertionError(f"[train] {label}: forward {fgap:.3e} or "
@@ -2494,6 +2626,25 @@ def phase_function_grads():
                                          opts),
         lambda *x: gla_ref.gla_chunked(*x, **opts),
         gla_inputs_, (c, b, xv, raw))
+    # RWKV6's training shape: the 255 positions a 256-token sequence feeds
+    # the model, 64 heads of 64, a float32 per-channel decay, the bonus u
+    # (a float32 parameter) and the strict mode, chunk 64
+    S, H, K = TRAIN_SEQ - 1, 64, 64
+    r, kk, vv = (leaf(B, S, H, K) for _ in range(3))
+    w_raw, u = leaf(B, S, H, K, dt=torch.float32), \
+        leaf(H, K, dt=torch.float32, scale=0.1)
+    ropts = dict(strict=True, chunk=64)
+
+    def rwkv_inputs():
+        return r, kk, vv, -torch.exp(-3.0 + w_raw)
+
+    function_grads(
+        "#5 GLAScan, RWKV6-7B time mix (8 x 255, 64 heads of 64, bonus, "
+        "strict)",
+        lambda *x: gla_ops.GLAScan.apply(*x, u, None, gla_kernel.gla_cuda,
+                                         ropts),
+        lambda *x: gla_ref.gla_chunked(*x, bonus=u, **ropts),
+        rwkv_inputs, (r, kk, vv, w_raw, u))
 
 
 def kill_and_resume():
@@ -2555,12 +2706,13 @@ def phase_train():
     """The trainer on the card: Qwen3-0.6B at full published width in bf16
     for TRAIN_STEPS steps with the carbon gate on (each hour's budget
     printed), loss finite and falling; the autograd Functions' gradients
-    against the plain route; Zamba2-7B at its published widths and
-    ZAMBA_TRAIN_LAYERS layers; the kill-and-resume replay. Returns the
-    launches of #4 and #5 on the two training runs."""
+    against the plain route; Zamba2-7B and RWKV6-7B at their published
+    widths and ZAMBA_TRAIN_LAYERS / RWKV_TRAIN_LAYERS layers; the
+    kill-and-resume replay. Returns the launches of #4 and #5 on the
+    training runs, and #5's calls by model and route."""
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen3-0.6b").config.replace(remat="none")
-    res, launched = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
+    res, launched, _ = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
                               profile="profile_train_step.txt",
                               carbon_aware=True,
                               steps_per_hour=TRAIN_STEPS_PER_HOUR)
@@ -2575,11 +2727,17 @@ def phase_train():
     phase_function_grads()
     zcfg = get_arch("zamba2-7b").config.replace(
         num_layers=ZAMBA_TRAIN_LAYERS, remat="none")
-    _, zlaunched = run_train(f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} of 81 layers)",
-                             zcfg, ZAMBA_TRAIN_STEPS)
-    totals = [a + b for a, b in zip(totals, zlaunched)]
+    _, zlaunched, zroutes = run_train(
+        f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} of 81 layers)", zcfg,
+        ZAMBA_TRAIN_STEPS)
+    rcfg = get_arch("rwkv6-7b").config.replace(
+        num_layers=RWKV_TRAIN_LAYERS, remat="none")
+    _, rlaunched, rroutes = run_train(
+        f"rwkv6-7b ({RWKV_TRAIN_LAYERS} of 32 layers)", rcfg,
+        RWKV_TRAIN_STEPS, profile="profile_train_step_rwkv6-7b.txt")
+    totals = [a + b + c for a, b, c in zip(totals, zlaunched, rlaunched)]
     kill_and_resume()
-    return totals
+    return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}
 
 
 def phase_serve_golden(gen=4):
@@ -2801,6 +2959,8 @@ def main():
     records = [phase_kernels(card), phase_ens_kernel(card), joint,
                phase_flash_kernel(card), phase_gla_kernel(card), s_project]
     records[0]["launches"] = phase_main_path()
+    phase_sharded()
+    phase_calibrate()
     counts, _ = phase_slice_path()
     # kernel #1 counts on the main path; #2 and #3 (by route) and the split
     # route's s_project on the slice path; #4 and #5 on the serving and
@@ -2812,12 +2972,14 @@ def main():
     records[0].update(phase_closed_loop(card))
     phase_telemetry()
     serving, records[3]["launches_by_route"], \
-        records[4]["launches_by_route"] = phase_serve()
+        records[4]["launches_by_route"], gla_serve = phase_serve()
     # #4 and #5 run on two paths, each counted from 0: serving and training
-    training = phase_train()
+    training, gla_train = phase_train()
     for rec, s, t in zip(records[3:5], serving, training):
         rec["launches"] = s + t
         rec["launches_by_path"] = {"serve": s, "train": t}
+    records[4]["launches_by_path_model_route"] = {"serve": gla_serve,
+                                                  "train": gla_train}
     phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
     phase_cross_device(closed_loop=True, telemetry=True)

@@ -101,6 +101,19 @@ def simulate_zone_from(key, zp: dict, days: int) -> torch.Tensor:
     return thermal * ci_thermal[..., None, None] / demand[..., None, :]
 
 
+def simulate_zone(key, zone: ZoneConfig, days: int) -> torch.Tensor:
+    """Hourly carbon intensity of one ``ZoneConfig``: (..., days, 24) for
+    keys (..., 2)."""
+    return simulate_zone_from(key, zone_params(zone, key.device), days)
+
+
+def simulate_zones_from(keys, zps: dict, days: int) -> torch.Tensor:
+    """A zone batch: keys (z, 2), ``zps`` of (z,) -> (z, days, 24). The
+    reference's ``vmap`` of ``simulate_zone_from``, which takes leading
+    batch axes here already."""
+    return simulate_zone_from(keys, zps, days)
+
+
 def forecast_day_ahead(key, history, actual_next, vol) -> torch.Tensor:
     """Day-ahead hourly forecast: blend of climatology (trailing 7-day
     mean) and persistence (yesterday), plus a volatility-scaled error.
@@ -111,6 +124,13 @@ def forecast_day_ahead(key, history, actual_next, vol) -> torch.Tensor:
     dev = actual_next - base
     err = prng.normal(key, (24,)) * vol[..., None] * torch.abs(actual_next)
     return torch.clamp(base + 0.8 * dev + err, min=1e-3)
+
+
+def mape(forecast, actual) -> torch.Tensor:
+    """Mean absolute percentage error over the last axis (a day's hours);
+    leading axes are batch axes. On one day, the reference's scalar."""
+    return (torch.abs(forecast - actual)
+            / torch.clamp(torch.abs(actual), min=1e-6)).mean(-1)
 
 
 def default_zones(n: int) -> Tuple[ZoneConfig, ...]:

@@ -36,6 +36,11 @@ from repro_torch.core import carbon, power, prng, slo, stages, stats, vcc
 f32 = torch.float32
 HIST_DAYS = 91            # 13 weeks of rolling history (default burn-in)
 
+# the staged core's synthesis and problem assembly, under the names the
+# reference's fleet module re-exports them by
+cluster_truth = stages.cluster_truth
+build_problem_arrays = stages.build_problem_arrays
+
 
 @dataclass(frozen=True)
 class FleetConfig:

@@ -5,12 +5,16 @@ usage U_IF(h), daily flexible usage T_UF(d), daily reservations T_R(d) and
 the reservations-to-usage ratio R(h): an EWMA weekly mean times EWMA
 intra-week factors, then a previous-day deviation corrector. Trailing
 relative-error quantiles give Theta (eq. 2) and the (1-gamma) inflexible
-quantile; eq. 3 gives the alpha inflation factor.
+quantile; eq. 3 gives the alpha inflation factor. ``calibrate_half_lives``
+picks the two EWMA half-lives by walk-forward MAPE over a grid, the whole
+grid one batched evaluation.
 
 Every function takes leading batch axes (clusters, rollouts) before its own
 time axes: a daily series is (..., days), an hourly one (..., days, 24).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -40,7 +44,12 @@ def quantile(x, q):
 
 
 def ewma_alpha(half_life) -> torch.Tensor:
-    """One-step EWMA weight for a half-life in update steps."""
+    """One-step EWMA weight for a half-life in update steps: a float, or a
+    tensor of half-lives (a weight each, on its device)."""
+    if isinstance(half_life, torch.Tensor):
+        hl = torch.clamp(half_life.to(f32), min=1e-3)
+        return 1.0 - torch.exp(torch.log(torch.tensor(
+            0.5, dtype=f32, device=hl.device)) / hl)
     return 1.0 - torch.exp(torch.log(torch.tensor(0.5, dtype=f32))
                            / max(half_life, 1e-3))
 
@@ -170,3 +179,50 @@ def alpha_inflation(theta, uif_pred, tuf_pred, ratio_a, ratio_b):
     alpha = (theta - (uif_pred * r).sum(-1)) / denom
     return torch.clamp(alpha, 0.5, 4.0)
 
+
+def _walk_forward_mape(hourly, hm, hf):
+    """Mean walk-forward MAPE of ``forecast_inflexible`` at half-lives
+    (hm, hf) on the trailing 14 days (two holdouts 7 days apart). hourly
+    (..., days, 24); hm, hf floats or tensors that broadcast against its
+    leading shape (a grid of half-lives is one batched evaluation, as the
+    reference's ``vmap``). Returns the broadcast shape."""
+    dev = hourly.device
+    hm = torch.as_tensor(hm, dtype=f32, device=dev)
+    hf = torch.as_tensor(hf, dtype=f32, device=dev)
+    errs = []
+    for back in (14, 7):
+        pred = forecast_inflexible(hourly[..., :-back, :], hm,
+                                   hf[..., None, None])
+        act = hourly[..., -back, :]
+        errs.append((torch.abs(pred - act)
+                     / torch.clamp(act, min=1e-6)).mean(-1))
+    return torch.stack(errs, -1).mean(-1)
+
+
+GRID = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0)
+
+
+def calibrate_half_lives(hourly, grid=GRID) -> Tuple[float, float]:
+    """The (hl_mean, hl_factor) pair of ``grid`` x ``grid`` with the least
+    walk-forward MAPE on one cluster's hourly (days, 24) history (paper:
+    EWMA parameters chosen by out-of-sample MAPE). The grid is one batched
+    ``_walk_forward_mape``; ``argmin`` over the row-major surface (hl_mean
+    outer) takes the first minimum, the pair the loop below keeps."""
+    g = len(grid)
+    garr = torch.tensor(grid, dtype=f32, device=hourly.device)
+    errs = _walk_forward_mape(hourly, garr.repeat_interleave(g),
+                              garr.repeat(g))
+    i = int(torch.argmin(errs))
+    return float(grid[i // g]), float(grid[i % g])
+
+
+def calibrate_half_lives_loop(hourly, grid=GRID) -> Tuple[float, float]:
+    """The same selection pair by pair (the parity loop of the
+    reference)."""
+    best, best_err = (0.5, 4.0), float("inf")
+    for hm in grid:
+        for hf in grid:
+            err = float(_walk_forward_mape(hourly, hm, hf))
+            if err < best_err:
+                best_err, best = err, (hm, hf)
+    return best

@@ -112,6 +112,28 @@ def pd_slope(coef, breaks, u):
     return s
 
 
+def daily_mape(coef, breaks, cpu, power) -> torch.Tensor:
+    """MAPE of the fitted curve against measured power over the last axis:
+    cpu, power (..., t) -> (...)."""
+    pred = pd_power(coef, breaks, cpu)
+    return (torch.abs(pred - power) / torch.clamp(power, min=1e-6)).mean(-1)
+
+
+def usage_fractions(cpu_by_pd) -> torch.Tensor:
+    """lambda^(PD): each PD's time-average share of its cluster's usage.
+    cpu_by_pd (..., pds, t) -> (..., pds)."""
+    tot = torch.clamp(cpu_by_pd.sum(-2, keepdim=True), min=1e-9)
+    return (cpu_by_pd / tot).mean(-1)
+
+
+# the reference's vmaps over PDs: the functions above take leading batch
+# axes, so they are their own batched forms
+fit_pd_models = fit_pd_model
+pd_power_b = pd_power
+pd_slope_b = pd_slope
+daily_mape_b = daily_mape
+
+
 def cluster_power(coef, breaks, lam, u_cluster):
     """Cluster power at cluster CPU u (..., t): sum over its PDs at
     u * lambda. coef (..., pds, K+2), breaks (..., pds, K), lam (..., pds)."""

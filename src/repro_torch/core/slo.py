@@ -19,10 +19,18 @@ class SLOConfig:
     rel_tol: float = 1e-3
 
 
+def init_state(n_clusters: int, device=None):
+    """A fleet's zeroed SLO state: four (n_clusters,) int32 counters."""
+    return {k: torch.zeros((n_clusters,), dtype=torch.int32, device=device)
+            for k in ("crowded_streak", "pause_left", "violation_days",
+                      "observed_days")}
+
+
 def update(state, cfg: SLOConfig, daily_reservations, vcc_budget,
            flexible_unmet, arrived):
     """One end-of-day update over (..., n) tensors. Returns (new_state,
-    shaping allowed for the NEXT day, bool)."""
+    shaping allowed for the NEXT day, bool); the counters keep their
+    integer type."""
     paused = state["pause_left"] > 0
     crowded = daily_reservations >= cfg.margin * vcc_budget
     streak = torch.where(paused, state["crowded_streak"],
@@ -34,7 +42,8 @@ def update(state, cfg: SLOConfig, daily_reservations, vcc_budget,
     new = {
         "crowded_streak": torch.where(trigger, 0, streak),
         "pause_left": pause,
-        "violation_days": state["violation_days"] + violated.long(),
+        "violation_days": state["violation_days"]
+        + violated.to(state["violation_days"].dtype),
         "observed_days": state["observed_days"] + 1,
     }
     return new, pause == 0

@@ -5,8 +5,8 @@
   ``kernels.vcc_pgd.ref``; this is the core-layer entry point).
 * ``minimize_linear`` — exact minimizer of a linear objective over the same
   polytope (sort + cumsum; the spatial pre-shift uses it).
-* ``peak_temperature`` / ``scaled_lr`` — the softmax-peak temperature and
-  the per-cluster learning rate.
+* ``smooth_peak`` / ``peak_temperature`` / ``scaled_lr`` — the softmax
+  peak, its temperature and the per-cluster learning rate.
 * ``campus_dual_update`` / ``dual_ascent`` — the outer loop: rounds of
   [inner PGD epoch -> clipped ascent on the campus power couplings], with
   an optional per-round diagnostic record (``diag_fn``, the telemetry
@@ -50,6 +50,15 @@ def minimize_linear(cost, lo, ub):
     add = torch.minimum(torch.clamp(budget - (cum - room), min=0.0), room)
     inv = torch.argsort(order, dim=-1, stable=True)
     return lo + torch.gather(add, -1, inv)
+
+
+def smooth_peak(pow_h, temp):
+    """Differentiable softmax-peak of each row and its weights: pow_h
+    (..., n, H); temp a float or per rollout (...). Returns ((..., n),
+    (..., n, H))."""
+    t = torch.as_tensor(temp, dtype=pow_h.dtype, device=pow_h.device)
+    w = torch.softmax(pow_h / t[..., None, None], dim=-1)
+    return (w * pow_h).sum(-1), w
 
 
 def peak_temperature(pow_nom, temp_frac):

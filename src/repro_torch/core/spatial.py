@@ -53,6 +53,14 @@ def spatial_shift(p: VCCProblem, *, mobility=0.3):
     return torch.clamp(p.tau + shift, min=0.0), price
 
 
+def spatial_shift_batched(p: VCCProblem, *, mobility=0.3):
+    """``spatial_shift`` over a stacked problem (a leading rollout axis),
+    ``mobility`` a scalar or one per rollout ((B,)): the reference's
+    ``vmap``; ``spatial_shift`` takes the batch as it is."""
+    return spatial_shift(p, mobility=torch.as_tensor(
+        mobility, dtype=f32, device=p.tau.device))
+
+
 # ------------------------------------------------- joint spatio-temporal
 
 def joint_power(p: VCCProblem, delta, s):
@@ -197,3 +205,13 @@ def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
                 "joint_winner": take.to(f32)}
         return sol, tau_j, s, BestOf(take, margin), diag
     return sol, tau_j, s, BestOf(take, margin)
+
+
+def solve_joint_batched(p: VCCProblem, mobility, **kw):
+    """``solve_joint`` over a stacked problem (a leading rollout axis),
+    ``mobility`` a scalar or (B,): the reference's ``vmap``. The mobility
+    is always a tensor here, as it is always traced there, so every rollout
+    takes the joint path (rollouts at 0 keep s = 0 through their bounds).
+    Returns what ``solve_joint`` returns."""
+    mob = torch.as_tensor(mobility, dtype=f32).expand(p.tau.shape[:-1])
+    return solve_joint(p, mob, **kw)

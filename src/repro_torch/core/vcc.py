@@ -89,6 +89,9 @@ class VCCSolution:
     objective: torch.Tensor     # (...)
 
 
+project_conservation = solver.project_conservation
+
+
 def delta_bounds(p: VCCProblem):
     """Per (c, h) bounds on delta + feasibility mask."""
     tau24 = torch.clamp(p.tau[..., None] / 24.0, min=1e-9)
@@ -335,3 +338,41 @@ def synthetic_problem(n: int = 12, seed: int = 7, n_campuses: int = 2,
         campus_limit=full((n_campuses,), 1e9),
         lambda_e=torch.tensor(0.1, device=dev),
         lambda_p=torch.tensor(0.05, device=dev), drop_limit=1.0)
+
+
+def solve_vcc_batched(p: VCCProblem, **kw):
+    """``solve_vcc`` over a stacked problem (a leading rollout axis): the
+    reference's ``vmap``; ``solve_vcc`` takes the batch as it is."""
+    return solve_vcc(p, **kw)
+
+
+def synthetic_zonal_problem(n: int = 12, seed: int = 3, n_campuses: int = 2,
+                            device=None) -> VCCProblem:
+    """``synthetic_problem`` with a strong spatial carbon gradient
+    (alternating dirty and clean clusters) and machine capacity cut to
+    0.85, so temporal shaping saturates in the dirty clusters and moving
+    budget between clusters pays: the joint tests' problem."""
+    p = synthetic_problem(n, seed=seed, n_campuses=n_campuses, device=device)
+    dev = p.eta.device
+    scale = torch.where(torch.arange(n, device=dev) % 2 == 0, 2.2, 0.5)
+    return dataclasses.replace(p, eta=p.eta * scale[:, None],
+                               capacity=p.capacity * 0.85)
+
+
+def greedy_linear_reference(eta_pi, lo, ub):
+    """Exact minimizer of sum_h c_h delta_h over {sum delta = 0} ∩ [lo, ub]
+    for ONE cluster, in float64 numpy: the independent oracle for the PGD
+    solve and ``solver.minimize_linear``. Start at lo and fill the cheapest
+    hours first until the budget -sum(lo) is spent."""
+    c = np.asarray(eta_pi, dtype=np.float64)
+    lo = np.asarray(lo, np.float64).copy()
+    ub = np.asarray(ub, np.float64).copy()
+    delta = lo.copy()
+    budget = -delta.sum()
+    for h in np.argsort(c):
+        add = min(ub[h] - delta[h], budget)
+        delta[h] += add
+        budget -= add
+        if budget <= 1e-12:
+            break
+    return delta

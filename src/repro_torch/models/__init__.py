@@ -1,5 +1,5 @@
-"""The serving slice's models: the dense ``DecoderLM`` and the hybrid
-``ZambaLM`` (Mamba2 + shared attention), as ``nn.Module``s."""
+"""The port's models: the dense ``DecoderLM``, the hybrid ``ZambaLM``
+(Mamba2 + shared attention) and RWKV6's ``RWKVLM``, as ``nn.Module``s."""
 from repro_torch.models.model import build_model
 
 __all__ = ["build_model"]

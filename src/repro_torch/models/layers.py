@@ -1,8 +1,7 @@
 """Shared model building blocks: initialisers, norms, RoPE, soft-capping,
 MLPs and the chunked vocabulary loss. The counterpart of
-``repro.models.layers`` (``layer_norm``, ``group_norm_heads`` and
-``sinusoidal_positions`` wait for the models that use them: ROADMAP.md
-queue 1, item 4).
+``repro.models.layers`` (``sinusoidal_positions`` waits for the
+encoder-decoder model: ROADMAP.md queue 1, item 4).
 
 Initialisers draw from an explicit ``torch.Generator`` on the device the
 weights live on. They follow the reference's distributions (truncated
@@ -48,6 +47,15 @@ def init_rms(d, *, device):
     return torch.zeros((d,), dtype=f32, device=device)  # (1 + scale)
 
 
+def init_ln(d, *, device, shape=None) -> nn.ParameterDict:
+    """A layer norm's float32 ``scale`` (ones) and ``bias`` (zeros) of
+    ``shape`` (default (d,)), as the reference's ``{"scale", "bias"}``."""
+    shape = (d,) if shape is None else shape
+    return nn.ParameterDict({
+        "scale": param(torch.ones(shape, dtype=f32, device=device)),
+        "bias": param(torch.zeros(shape, dtype=f32, device=device))})
+
+
 def param(x) -> nn.Parameter:
     """A weight that takes gradients (the trainer's); serving runs under
     ``torch.inference_mode``, which records nothing for it."""
@@ -61,6 +69,23 @@ def rms_norm(x, scale, eps=1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(f32))
     return out.to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last axis in float32 with the population
+    variance (``jnp.var``'s mean squared deviation), cast back to x's
+    type."""
+    xf = x.to(f32)
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mu).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(f32) + bias.to(f32)).to(x.dtype)
+
+
+def group_norm_heads(x, scale, bias, eps=1e-5):
+    """Per-head layer norm (RWKV's ``ln_x``): x (..., H, hd) normalised
+    over hd; scale, bias (H, hd)."""
+    return layer_norm(x, scale, bias, eps)
 
 
 # ---------------------------------------------------------------------- rope

@@ -1,17 +1,18 @@
 """``build_model``: the counterpart of ``repro.models.model.build_model``
-for the families this slice ports (dense and hybrid). The reference's
-``param_specs``, ``cache_specs``, ``batch_specs`` and ``input_specs`` are
-``jax.eval_shape`` dry-run helpers and have no counterpart (ROADMAP.md:
-out of scope on one card)."""
+for the families ported so far (dense, hybrid and RWKV6's ssm). The
+reference's ``param_specs``, ``cache_specs``, ``batch_specs`` and
+``input_specs`` are ``jax.eval_shape`` dry-run helpers and have no
+counterpart (ROADMAP.md: out of scope on one card)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.models.transformer import DecoderLM, ZambaLM
+from repro_torch.models.transformer import DecoderLM, RWKVLM, ZambaLM
 
-_LATER = ("ROADMAP.md queue 1, item 4: the RWKV6, MoE, VLM, MLA and "
+_LATER = ("ROADMAP.md queue 1, item 4: the MoE, VLM, MLA and "
           "encoder-decoder models are ported one a PR")
+_MODELS = {"dense": DecoderLM, "hybrid": ZambaLM, "ssm": RWKVLM}
 
 
 def build_model(cfg, device=None, *, seed: int = 0, generator=None):
@@ -20,7 +21,7 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     ``generator`` or a generator on that device seeded with ``seed``.
     Raises ``NotImplementedError`` for a family or option not ported."""
     dev = device_mod.resolve(device)
-    if cfg.family not in ("dense", "hybrid") or cfg.mla is not None \
+    if cfg.family not in _MODELS or cfg.mla is not None \
             or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   f"ported yet ({_LATER})")
@@ -30,5 +31,4 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
                                   "card (ROADMAP.md: out of scope on one card)")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    cls = DecoderLM if cfg.family == "dense" else ZambaLM
-    return cls(cfg, generator=generator, device=dev)
+    return _MODELS[cfg.family](cfg, generator=generator, device=dev)

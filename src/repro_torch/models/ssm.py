@@ -1,12 +1,14 @@
-"""Recurrent mixer: Mamba2 (Zamba2's backbone). The counterpart of
-``repro.models.ssm``'s Mamba2 part (``mamba_dims`` .. ``apply_mamba_decode``);
-RWKV6 waits for its model (ROADMAP.md queue 1, item 4).
+"""Recurrent mixers: Mamba2 (Zamba2's backbone) and RWKV6's time and
+channel mixes. The counterpart of ``repro.models.ssm``.
 
-Mamba2 reduces to the chunked gated linear attention of
-``kernels.linear_scan``: a scalar per-head decay ``exp(-dt exp(A_log))``,
-dt folded into v, B and C broadcast over the heads (a stride-0 ``expand``,
-never a copy). A prefill runs the scan (kernel #5 on the card), a decode
-step ``gla_step``.
+Both reduce to the chunked gated linear attention of
+``kernels.linear_scan``. Mamba2: a scalar per-head decay
+``exp(-dt exp(A_log))``, dt folded into v, B and C broadcast over the heads
+(a stride-0 ``expand``, never a copy). RWKV6: a per-channel decay
+``exp(-exp(w0 + LoRA(x)))`` in float32, the bonus ``u`` on the current
+token and the strict mode (a token sees the state before its own update).
+A prefill runs the scan (kernel #5 on the card: ``gla_ssd.cu`` for bf16
+Mamba2, ``gla_scan.cu`` for RWKV6), a decode step the plain ``gla_step``.
 """
 from __future__ import annotations
 
@@ -134,3 +136,142 @@ class Mamba2(nn.Module):
         o, ssm_state = gla_ops.gla_step(q[:, 0], k[:, 0], v[:, 0],
                                         log_decay[:, 0], ssm_state)
         return self._out(o[:, None], xh, z), conv_state, ssm_state
+
+
+# -------------------------------------------------------------------- RWKV6
+
+def rwkv_dims(cfg):
+    """(heads, head dim) of the RWKV6 time mix."""
+    hd = cfg.rwkv.head_dim
+    return cfg.d_model // hd, hd
+
+
+def _shift(x, x_prev):
+    """Token shift: y_t = x_{t-1}, y_0 = the carried x_prev (B, 1, D)."""
+    return torch.cat([x_prev.to(x.dtype), x[:, :-1]], 1)
+
+
+class RWKVTimeMix(nn.Module):
+    """``init_rwkv_tmix`` / ``apply_rwkv_tmix`` /
+    ``apply_rwkv_tmix_decode``, with the reference's parameter names: the
+    token-shift mix (``mu_x``, ``mu`` and its LoRA ``mix_w1`` /
+    ``mix_w2``), the decay (``w0`` and its LoRA ``w1`` / ``w2``), the bonus
+    ``u``, the projections ``wr``, ``wk``, ``wv``, ``wg``, ``wo`` and the
+    per-head norm ``ln_x``. The mix and decay parameters are float32 and
+    cast to the input's type where the reference casts them; the decay is
+    formed in float32."""
+
+    def __init__(self, cfg, dtype, *, generator, device):
+        super().__init__()
+        r = cfg.rwkv
+        D = cfg.d_model
+        H, hd = rwkv_dims(cfg)
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device)
+
+        def full(shape, v):
+            return L.param(torch.full(shape, v, dtype=f32, device=device))
+
+        self.mu_x = full((D,), 0.5)
+        self.mu = full((5, D), 0.5)
+        self.mix_w1 = L.param(L.dense_init((D, 5 * r.mix_lora), (0,), f32,
+                                           **kw))
+        self.mix_w2 = full((5, r.mix_lora, D), 0.0)
+        self.w0 = L.param(torch.linspace(-6.0, 0.0, D, dtype=f32,
+                                         device=device))
+        self.w1 = L.param(L.dense_init((D, r.decay_lora), (0,), f32, **kw))
+        self.w2 = full((r.decay_lora, D), 0.0)
+        self.u = L.param(0.1 * torch.randn((H, hd), dtype=f32, device=device,
+                                           generator=generator))
+        for name in ("wr", "wk", "wv", "wg"):
+            setattr(self, name, L.param(L.dense_init((D, D), (0,), dtype,
+                                                     **kw)))
+        self.ln_x = L.init_ln(D, device=device, shape=(H, hd))
+        self.wo = L.param(L.dense_init((D, D), (0,), dtype, **kw))
+
+    def _inputs(self, x, xx):
+        """(r, k, v) (B, S, H, hd), the gate g (B, S, D) and the float32
+        log decay (B, S, H, hd) of x and its shift difference xx."""
+        r = self.cfg.rwkv
+        B, S, D = x.shape
+        H, hd = rwkv_dims(self.cfg)
+        dt = x.dtype
+        xxx = x + xx * self.mu_x.to(dt)
+        mix = torch.tanh(xxx @ self.mix_w1.to(dt)).reshape(
+            B, S, 5, r.mix_lora)
+        mix = torch.einsum("bsfm,fmd->bsfd", mix, self.mix_w2.to(dt)) \
+            + self.mu.to(dt)
+        xw, xk, xv, xr, xg = (x + xx * mix[:, :, i] for i in range(5))
+        rr = (xr @ self.wr).reshape(B, S, H, hd)
+        k = (xk @ self.wk).reshape(B, S, H, hd)
+        v = (xv @ self.wv).reshape(B, S, H, hd)
+        g = F.silu(xg @ self.wg)
+        lora = torch.tanh(xw @ self.w1.to(dt)) @ self.w2.to(dt)
+        log_w = -torch.exp(self.w0 + lora.to(f32))
+        return rr, k, v, g, log_w.reshape(B, S, H, hd)
+
+    def _out(self, o, g):
+        o = L.group_norm_heads(o, self.ln_x["scale"], self.ln_x["bias"],
+                               self.cfg.norm_eps)
+        return (o.reshape(g.shape) * g) @ self.wo
+
+    def forward(self, x, *, shift_state=None, wkv_state=None,
+                return_state: bool = False):
+        """``apply_rwkv_tmix``. x: (B, S, D); shift_state (B, 1, D);
+        wkv_state (B, H, hd, hd) float32. With ``return_state``, also
+        (x[:, -1:], the final wkv state)."""
+        B, S, D = x.shape
+        if shift_state is None:
+            shift_state = torch.zeros((B, 1, D), dtype=x.dtype,
+                                      device=x.device)
+        rr, k, v, g, log_w = self._inputs(x, _shift(x, shift_state) - x)
+        o, wkv_state = gla_ops.gla(rr, k, v, log_w, bonus=self.u,
+                                   strict=True, chunk=self.cfg.rwkv.chunk,
+                                   initial_state=wkv_state)
+        y = self._out(o, g)
+        return (y, (x[:, -1:], wkv_state)) if return_state else y
+
+    def decode(self, x, shift_state, wkv_state):
+        """``apply_rwkv_tmix_decode``: one token, x (B, 1, D). Returns (y,
+        the new shift state x, the new wkv state)."""
+        rr, k, v, g, log_w = self._inputs(x, shift_state.to(x.dtype) - x)
+        o, wkv_state = gla_ops.gla_step(rr[:, 0], k[:, 0], v[:, 0],
+                                        log_w[:, 0], wkv_state,
+                                        bonus=self.u, strict=True)
+        return self._out(o, g[:, 0])[:, None], x, wkv_state
+
+
+class RWKVChannelMix(nn.Module):
+    """``init_rwkv_cmix`` / ``apply_rwkv_cmix`` / ``apply_rwkv_cmix_decode``:
+    the token-shift mix (``mu_k``, ``mu_r``), a squared-ReLU MLP (``wk``,
+    ``wv``) and its sigmoid receptance gate (``wr``)."""
+
+    def __init__(self, cfg, dtype, *, generator, device):
+        super().__init__()
+        D, Fd = cfg.d_model, cfg.d_ff
+        kw = dict(generator=generator, device=device)
+        self.mu_k = L.param(torch.full((D,), 0.5, dtype=f32, device=device))
+        self.mu_r = L.param(torch.full((D,), 0.5, dtype=f32, device=device))
+        self.wk = L.param(L.dense_init((D, Fd), (0,), dtype, **kw))
+        self.wv = L.param(L.dense_init((Fd, D), (0,), dtype, **kw))
+        self.wr = L.param(L.dense_init((D, D), (0,), dtype, **kw))
+
+    def _mix(self, x, xx):
+        xk = x + xx * self.mu_k.to(x.dtype)
+        xr = x + xx * self.mu_r.to(x.dtype)
+        v = torch.square(F.relu(xk @ self.wk)) @ self.wv
+        return torch.sigmoid(xr @ self.wr) * v
+
+    def forward(self, x, *, shift_state=None, return_state: bool = False):
+        """``apply_rwkv_cmix``. x: (B, S, D). With ``return_state``, also
+        x[:, -1:]."""
+        B, S, D = x.shape
+        if shift_state is None:
+            shift_state = torch.zeros((B, 1, D), dtype=x.dtype,
+                                      device=x.device)
+        y = self._mix(x, _shift(x, shift_state) - x)
+        return (y, x[:, -1:]) if return_state else y
+
+    def decode(self, x, shift_state):
+        """``apply_rwkv_cmix_decode``: one token; returns (y, x)."""
+        return self._mix(x, shift_state.to(x.dtype) - x), x

@@ -1,7 +1,8 @@
-"""Decoder LMs: the dense ``DecoderLM`` and the hybrid ``ZambaLM`` (Mamba2
-backbone plus one weight-shared attention block). The counterpart of
-``repro.models.transformer``'s blocks and those two models, without their
-MLA, MoE and VLM branches (ROADMAP.md queue 1, item 4).
+"""Decoder LMs: the dense ``DecoderLM``, the hybrid ``ZambaLM`` (Mamba2
+backbone plus one weight-shared attention block) and the attention-free
+``RWKVLM`` (RWKV6). The counterpart of ``repro.models.transformer``'s
+blocks and those three models, without their MLA, MoE and VLM branches
+(ROADMAP.md queue 1, item 4).
 
 The reference stacks per-layer parameters for ``lax.scan``; here each
 layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
@@ -101,14 +102,17 @@ def _stack_kv(kvs, max_seq):
 class _LM(nn.Module):
     """Embedding, final norm and head shared by the two models."""
 
-    def __init__(self, cfg, *, generator, device, tied: bool):
+    def __init__(self, cfg, *, generator, device, tied: bool,
+                 layer_norm: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = L.torch_dtype(cfg.dtype)
         kw = dict(generator=generator, device=device)
         self.embed = L.param(L.embed_init(cfg.vocab_size, cfg.d_model,
                                           self.dtype, **kw))
-        self.final_norm = L.param(L.init_rms(cfg.d_model, device=device))
+        self.final_norm = (L.init_ln(cfg.d_model, device=device)
+                           if layer_norm else
+                           L.param(L.init_rms(cfg.d_model, device=device)))
         if not tied:
             self.lm_head = L.param(L.embed_init(cfg.vocab_size, cfg.d_model,
                                                 self.dtype, **kw))
@@ -322,4 +326,116 @@ class ZambaLM(_LM):
             cache["t_conv"][i] = cst
             cache["t_ssm"][i] = sst
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x[:, 0], self.lm_head), cache
+
+
+def _ln(ln, x, eps):
+    """``layer_norm`` with a ``{"scale", "bias"}`` parameter dict."""
+    return L.layer_norm(x, ln["scale"], ln["bias"], eps)
+
+
+class RWKVLayer(nn.Module):
+    """An RWKV6 layer: ``ln1`` and the time mix, ``ln2`` and the channel
+    mix, each residual."""
+
+    def __init__(self, cfg, dtype, *, generator, device):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device)
+        self.ln1 = L.init_ln(cfg.d_model, device=device)
+        self.ln2 = L.init_ln(cfg.d_model, device=device)
+        self.tmix = S.RWKVTimeMix(cfg, dtype, **kw)
+        self.cmix = S.RWKVChannelMix(cfg, dtype, **kw)
+
+    def forward(self, x, *, want_state: bool = False):
+        """Returns (x, (shift_t, wkv, shift_c) or None): the mixers' states
+        after the sequence (each shift state is its mixer's normed input at
+        the last position)."""
+        eps = self.cfg.norm_eps
+        y = self.tmix(_ln(self.ln1, x, eps), return_state=want_state)
+        if want_state:
+            y, (sh_t, wkv) = y
+        x = x + y
+        y = self.cmix(_ln(self.ln2, x, eps), return_state=want_state)
+        if want_state:
+            y, sh_c = y
+            return x + y, (sh_t, wkv, sh_c)
+        return x + y, None
+
+    def decode(self, x, wkv, sh_t, sh_c):
+        """One token from the layer's states; returns (x, wkv, shift_t,
+        shift_c)."""
+        eps = self.cfg.norm_eps
+        y, sh_t, wkv = self.tmix.decode(_ln(self.ln1, x, eps), sh_t, wkv)
+        x = x + y
+        y, sh_c = self.cmix.decode(_ln(self.ln2, x, eps), sh_c)
+        return x + y, wkv, sh_t, sh_c
+
+
+class RWKVLM(_LM):
+    """RWKV6 (``family == "ssm"``): the embedding, ``ln0``, ``num_layers``
+    ``RWKVLayer``s (``stack``), the final layer norm and an untied
+    ``lm_head``. Its decode cache holds each layer's float32 ``wkv`` state
+    (L, B, H, hd, hd) and its two token-shift states ``shift_t`` and
+    ``shift_c`` (L, B, 1, D) in the model's type; ``max_seq`` and ``pos``
+    do not enter (the state is O(1) in the sequence)."""
+
+    def __init__(self, cfg, *, generator, device):
+        if cfg.family != "ssm" or cfg.rwkv is None:
+            raise NotImplementedError(f"RWKVLM takes the ssm family, not "
+                                      f"{cfg.family!r}")
+        super().__init__(cfg, generator=generator, device=device,
+                         tied=False, layer_norm=True)
+        self.ln0 = L.init_ln(cfg.d_model, device=device)
+        self.stack = nn.ModuleList(
+            RWKVLayer(cfg, self.dtype, generator=generator, device=device)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, tokens, *, collect: bool = False):
+        """Final hidden states; with ``collect``, also the stacked
+        (shift_t, wkv, shift_c) of every layer."""
+        eps = self.cfg.norm_eps
+        x = _ln(self.ln0, F.embedding(tokens, self.embed), eps)
+        states = []
+        for layer in self.stack:
+            x, st = layer(x, want_state=collect)
+            states.append(st)
+        x = _ln(self.final_norm, x, eps)
+        if not collect:
+            return x
+        return x, tuple(torch.stack(s) for s in zip(*states))
+
+    def loss(self, batch):
+        """Next-token chunked cross-entropy of ``batch["tokens"]`` (B, S),
+        no softcap. Returns (loss, metrics)."""
+        tokens = batch["tokens"]
+        x = self.forward(tokens[:, :-1])
+        return L.chunked_xent(x, self.lm_head, tokens[:, 1:])
+
+    def init_cache(self, batch: int, max_seq: int):
+        H, hd = S.rwkv_dims(self.cfg)
+        n, D = self.cfg.num_layers, self.cfg.d_model
+        dev, dt = self.embed.device, self.dtype
+        return {"wkv": torch.zeros((n, batch, H, hd, hd), dtype=f32,
+                                   device=dev),
+                "shift_t": torch.zeros((n, batch, 1, D), dtype=dt,
+                                       device=dev),
+                "shift_c": torch.zeros((n, batch, 1, D), dtype=dt,
+                                       device=dev)}
+
+    def prefill(self, batch, max_seq: int):
+        x, (sh_t, wkv, sh_c) = self.forward(batch["tokens"], collect=True)
+        cache = {"wkv": wkv, "shift_t": sh_t, "shift_c": sh_c}
+        return self._logits(x[:, -1], self.lm_head), cache
+
+    def decode_step(self, cache, token, pos: int):
+        eps = self.cfg.norm_eps
+        x = _ln(self.ln0, F.embedding(token[:, None], self.embed), eps)
+        for i, layer in enumerate(self.stack):
+            x, wkv, sh_t, sh_c = layer.decode(
+                x, cache["wkv"][i], cache["shift_t"][i], cache["shift_c"][i])
+            cache["wkv"][i] = wkv
+            cache["shift_t"][i] = sh_t
+            cache["shift_c"][i] = sh_c
+        x = _ln(self.final_norm, x, eps)
         return self._logits(x[:, 0], self.lm_head), cache

@@ -5,7 +5,8 @@ counterfactual (``ledger``), per-scenario reporting (``report``) and the
 telemetry layer (``telemetry``)."""
 from repro_torch.sim.engine import (SimConfig, SimParams, SimState,
                                     make_day_step, make_init, make_rollout,
-                                    rollout_batch, rollout_sequential)
+                                    rollout_batch, rollout_batch_sharded,
+                                    rollout_sequential)
 from repro_torch.sim.ledger import (Ledger, init_ledger, ledger_update,
                                     summarize)
 from repro_torch.sim.report import (MOBILITY_COLUMNS, MPC_COLUMNS,
@@ -27,7 +28,8 @@ from repro_torch.sim.telemetry import (TRACE_FIELDS, DayTelemetry,
 
 __all__ = [
     "SimConfig", "SimParams", "SimState", "make_init", "make_day_step",
-    "make_rollout", "rollout_batch", "rollout_sequential",
+    "make_rollout", "rollout_batch", "rollout_batch_sharded",
+    "rollout_sequential",
     "Ledger", "init_ledger", "ledger_update", "summarize",
     "Scenario", "build_params", "build_batch", "default_library",
     "forecast_bust_library", "mobility_sweep_library",

@@ -1,5 +1,5 @@
 """Batched fleet rollout engine over the staged core (port of
-``repro.sim.engine``, without sharding).
+``repro.sim.engine``).
 
 * ``SimConfig``        — static shapes + solver knobs; everything dynamic
   (prices, risk, weather, outages) lives in ``SimParams`` tensors.
@@ -8,6 +8,9 @@
   emissions ledger and the unshaped counterfactual.
 * ``rollout_batch``    — init + rollout of a (scenario x seed) batch on one
   device, the batch a leading tensor axis.
+* ``rollout_batch_sharded`` — the batch split into equal slices over
+  devices (the reference's 1-D mesh), each slice run by ``rollout_batch``
+  on its device, the results joined on the first device.
 * ``rollout_sequential`` — the per-rollout reference: each rollout of the
   batch driven alone (batch of one), stacked.
 """
@@ -148,6 +151,40 @@ def rollout_batch(cfg: SimConfig, days: int, device=None, on_day=None):
     def run(params: SimParams):
         params = stages.map_tensors(lambda t: t.to(dev), params)
         return roll(params, init(params))
+
+    return run
+
+
+def rollout_batch_sharded(cfg: SimConfig, days: int, devices=None):
+    """``rollout_batch`` with the (scenario x seed) batch split into equal
+    slices over ``devices`` (default: every CUDA card,
+    ``torch.cuda.device_count()`` of them). Each slice runs its burn-in and
+    rollout on its device; the results are concatenated on the first one.
+    Rollouts do not interact and the port's numerics are batch-invariant,
+    so the result is ``rollout_batch``'s bit for bit. A device may repeat
+    (``("cpu", "cpu")`` splits the batch in two on the CPU). The slices run
+    one after another from the host.
+
+    The batch must divide by the number of devices: pad it (repeat a seed)
+    or pass fewer devices otherwise."""
+    if devices is None:
+        _device.resolve(None)
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [_device.resolve(d) for d in devices]
+    runs = [rollout_batch(cfg, days, device=d) for d in devs]
+
+    def run(params: SimParams):
+        b = params.key.shape[0]
+        if b % len(devs):
+            raise ValueError(
+                f"batch of {b} rollouts does not divide across the "
+                f"{len(devs)} devices; pad the (scenario x seed) batch or "
+                "pass fewer devices")
+        m = b // len(devs)
+        outs = [r(stages.map_tensors(lambda t, i=i: t[i * m:(i + 1) * m],
+                                     params)) for i, r in enumerate(runs)]
+        return stages.zip_tensors(
+            lambda ts: torch.cat([t.to(devs[0]) for t in ts], dim=0), outs)
 
     return run
 

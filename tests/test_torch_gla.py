@@ -187,7 +187,8 @@ def test_route_of_each_chip_smoke_case():
             "zamba2 from a state": "gla_ssd",
             "zamba2 one token from a state": "gla_ssd",
             "zamba2 float32": "gla_scan", "rwkv6 vector decay": "gla_scan",
-            "rwkv6 bonus + strict": "gla_scan"}
+            "rwkv6 bonus + strict": "gla_scan",
+            "rwkv6-7b serving prefill": "gla_scan"}
     got = {label: kernel.route(dt, K, V, vec=mode != "scalar",
                                bonus=mode == "rwkv", strict=mode == "rwkv")
            for label, B, S, H, K, V, dt, mode, chunk, init

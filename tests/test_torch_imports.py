@@ -94,6 +94,21 @@ def test_training_slice_modules_are_scanned():
             "repro_torch/training.py"} <= names
 
 
+def test_core_rest_sharding_and_rwkv_modules_are_scanned():
+    """The modules that hold the rest of ``core/`` (calibration, the
+    carbon, power and SLO helpers, the softmax peak, the batched solves),
+    the sharded rollout and the RWKV6 family are among the scanned
+    sources."""
+    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
+    assert {"repro_torch/core/forecast.py", "repro_torch/core/carbon.py",
+            "repro_torch/core/power.py", "repro_torch/core/slo.py",
+            "repro_torch/core/solver.py", "repro_torch/core/spatial.py",
+            "repro_torch/core/vcc.py", "repro_torch/sim/engine.py",
+            "repro_torch/models/layers.py", "repro_torch/models/ssm.py",
+            "repro_torch/models/transformer.py",
+            "repro_torch/models/model.py"} <= names
+
+
 @pytest.mark.parametrize("module,source", (
     ("flash_attention", "flash_attention.cu"),
     ("flash_attention", "flash_prefill.cu"),

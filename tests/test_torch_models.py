@@ -195,8 +195,7 @@ def test_bfloat16_qwen3_matches_reference():
 
 
 @pytest.mark.parametrize("name", ("deepseek-moe-16b", "deepseek-v2-236b",
-                                  "internvl2-2b", "rwkv6-7b",
-                                  "whisper-base"))
+                                  "internvl2-2b", "whisper-base"))
 def test_build_model_refuses_unported_families(name):
     cfg = get_arch(name).smoke
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
