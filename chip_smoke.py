@@ -6,9 +6,10 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: ``nvcc`` compiles the eight kernel sources of the port (three
-   of kernel #4: its decode, bf16 prefill and float32 prefill routes; two
-   of #5: its tensor-core and CUDA-core routes) from
+2. build: ``nvcc`` compiles the nine kernel sources of the port (three
+   of kernel #4: its decode, bf16 prefill and float32 prefill routes;
+   three of #5: its scalar-decay and per-channel-decay tensor-core routes
+   and its CUDA-core route) from
    their ``csrc/`` into ``build/`` (one compiler process per source, all
    started together, with ``-Xptxas -v``: registers and spills);
 3. kernels against their plain versions on the card, at three row counts
@@ -36,8 +37,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    and the GLA scan (#5) at
    Zamba2-7B's Mamba2 prefill (a ragged length and an initial state too)
    and in RWKV6-7B's per-channel and bonus + strict modes (at a batch of
-   2, and at its serving prefill's 4 x 1,024 tokens), each line naming its
-   route;
+   2, at decays of -30 a step and more, at a ragged 1,000 tokens, and at
+   its serving prefill's 4 x 1,024 tokens), each line naming its route;
+   at the serving prefill's shape the CUDA-core source ``gla_scan.cu``
+   timed too, on the same inputs, beside the route's time;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
@@ -94,7 +97,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
    Qwen3-0.6B and RWKV6-7B, 2 rounds of 4 prompts of 1,024 tokens and 32
    decoded tokens each, with exact launch counts of #4 and #5 (and their
-   calls by route: RWKV6's 64 scans all on ``gla_scan``), prefill and
+   calls by route: RWKV6's 64 scans all on ``gla_vec``), prefill and
    per-token times, tokens/s and peak memory; a full-width check of a
    decode step's logits against the prefill of the same tokens; one
    profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
@@ -115,7 +118,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    step (table in chiprun_out/profile_train_step.txt);
    Zamba2-7B at its published widths and 12 of 81 layers, and RWKV6-7B at
    its published widths and 8 of 32 layers, for 2 steps each, with exact
-   launches of #4 and #5 (RWKV6's on ``gla_scan``; its step's parts and
+   launches of #4 and #5 (RWKV6's on ``gla_vec``; its step's parts and
    a profiled step after them), and #5's Function at
    RWKV6's training shape (bonus, strict) against the plain route; and
    ``python -m repro_torch.launch.train
@@ -134,7 +137,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    cuda against cpu (logits of prefill and 4 decode steps, greedy
    tokens);
 8. one ``{"kernels": [...]}`` JSON line (#5's launches by path, model and
-   route among its keys), the ``nvidia-smi`` line, and last
+   route among its keys; its RWKV6 route ``gla_vec`` also as a record of
+   its own, with ``gla_scan.cu``'s time beside it), the ``nvidia-smi``
+   line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and without the repo's
@@ -981,8 +986,10 @@ def gla_cases():
     B and C shared by the heads), a ragged length, a prefill from a state,
     a one-token scan from a state, float32; RWKV6-7B's widths (64 heads of
     64, chunk 64) with per-channel decay, with its bonus in the strict
-    mode from a state, and at its serving prefill's shape (the batch of
-    4 x 1,024 tokens a layer of the serving path scans, from no state)."""
+    mode from a state, the same at log decays of -30 a step and below
+    (``strong``), at a ragged 1,000 tokens, and at its serving prefill's
+    shape (the batch of 4 x 1,024 tokens a layer of the serving path
+    scans, from no state)."""
     B, P = SERVE_BATCH, SERVE_PROMPT
     bf, f = torch.bfloat16, torch.float32
     return [
@@ -995,8 +1002,16 @@ def gla_cases():
         ("zamba2 float32", 1, P, 112, 64, 64, f, "scalar", 256, True),
         ("rwkv6 vector decay", 2, P, 64, 64, 64, bf, "vector", 64, False),
         ("rwkv6 bonus + strict", 2, P, 64, 64, 64, bf, "rwkv", 64, True),
+        ("rwkv6 strong decay", 2, P, 64, 64, 64, bf, "strong", 64, True),
+        ("rwkv6 ragged", B, 1000, 64, 64, 64, bf, "rwkv", 64, True),
         (RWKV_SERVE_CASE, B, P, 64, 64, 64, bf, "rwkv", 64, False),
     ]
+
+
+def gla_mode(mode):
+    """(per-channel decay, bonus, strict) of a ``gla_cases`` mode."""
+    return mode != "scalar", mode in ("rwkv", "strong"), \
+        mode in ("rwkv", "strong")
 
 
 def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
@@ -1010,15 +1025,19 @@ def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
         ld, u = -0.7 * n(B, S, H).abs(), None
     else:
         q, k = n(B, S, H, K).to(dt), n(B, S, H, K).to(dt)
-        ld = -3.0 * n(B, S, H, K).abs()
-        u = n(H, K) if mode == "rwkv" else None
+        ld = -(30.0 + n(B, S, H, K).abs()) if mode == "strong" else \
+            -3.0 * n(B, S, H, K).abs()
+        u = n(H, K) if gla_mode(mode)[1] else None
     v = n(B, S, H, V).to(dt)
     h0 = n(B, H, K, V) if init else None
     return q, k, v, ld, u, h0
 
 
 GLA_SOURCES = [f"src/repro_torch/kernels/linear_scan/csrc/{f}" for f in
-               ("gla_ssd.cu", "gla_scan.cu")]
+               ("gla_ssd.cu", "gla_vec.cu", "gla_scan.cu")]
+GLA_ROUTE_NOTE = {"gla_ssd": "(64-row tiles, tensor cores)",
+                  "gla_vec": "(64-row tiles in 16-row sub-blocks, tensor "
+                             "cores; 8-row triangles on the CUDA cores)"}
 
 
 def phase_gla_kernel(card):
@@ -1026,7 +1045,9 @@ def phase_gla_kernel(card):
     tensors). The state is float32 and held to 1e-4 of max|state|; so is
     a float32 output. A bf16 output rounds the same float32 sum on both
     sides, so it is held to 1e-4 of max|o| plus one bf16 unit in the last
-    place of the plain value."""
+    place of the plain value. At RWKV6-7B's serving prefill the CUDA-core
+    source ``gla_scan.cu`` runs on the same inputs too (``run_source``),
+    held to the same limits and timed in turns with the route."""
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.kernels.linear_scan import ref as gla_ref
     dev = torch.device("cuda")
@@ -1035,8 +1056,8 @@ def phase_gla_kernel(card):
             gla_cases()):
         q, k, v, ld, u, h0 = gla_inputs(B, S, H, K, V, dt, mode, init, dev,
                                         100 + i)
-        kw = dict(bonus=u, strict=mode == "rwkv", chunk=chunk,
-                  initial_state=h0)
+        vec, bonus, strict = gla_mode(mode)
+        kw = dict(bonus=u, strict=strict, chunk=chunk, initial_state=h0)
 
         def kern():
             return gla_kernel.gla_cuda(q, k, v, ld, **kw)
@@ -1044,40 +1065,60 @@ def phase_gla_kernel(card):
         def plain():
             return gla_ref.gla_chunked(q, k, v, ld, **kw)
 
+        def old():
+            return gla_kernel.run_source("gla_scan", q, k, v, ld, **kw)
+
         before = dict(gla_kernel.gla_cuda.routes)
         o, hT = kern()
         ran = [r for r, n in gla_kernel.gla_cuda.routes.items()
                if n != before[r]]
-        want = gla_kernel.route(dt, K, V, vec=mode != "scalar",
-                                bonus=u is not None, strict=mode == "rwkv")
+        want = gla_kernel.route(dt, K, V, vec=vec, bonus=bonus,
+                                strict=strict)
         if ran != [want]:
             raise AssertionError(f"gla scan {label}: launched on {ran}, "
                                  f"route() says {want}")
         route = ran[0]
         wo, whT = plain()
         torch.cuda.synchronize()
-        err = (o.float() - wo.float()).abs()
         o_scale = wo.float().abs().max().item()
-        ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
-        excess = (err - GLA_RTOL * o_scale
-                  - ulp * wo.float().abs()).max().item()
-        s_err = (hT - whT).abs().max().item()
         s_scale = whT.abs().max().item()
-        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=5,
-                                                          warmup=1)
-        flops = gla_kernel.gla_flops(B, S, H, K, V, vec=mode != "scalar",
-                                     bonus=u is not None,
-                                     strict=mode == "rwkv", chunk=chunk)
+        ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
+
+        def check(o, hT):
+            err = (o.float() - wo.float()).abs()
+            excess = (err - GLA_RTOL * o_scale
+                      - ulp * wo.float().abs()).max().item()
+            s_err = (hT - whT).abs().max().item()
+            finite = bool(torch.isfinite(o.float()).all()
+                          and torch.isfinite(hT).all())
+            return err.max().item(), s_err, (
+                finite and excess <= 0.0 and s_err <= GLA_RTOL * s_scale)
+
+        err, s_err, ok = check(o, hT)
+        ab = label == RWKV_SERVE_CASE and route != "gla_scan"
+        if ab:   # the CUDA-core source on the same call, timed in turns
+            old_err, old_s_err, old_ok = check(*old())
+            ms_list, old_list = [], []
+            for r in range(2):
+                for fn, acc in ((kern, ms_list), (old, old_list))[::(
+                        1 if r == 0 else -1)]:
+                    acc.append(cuda_ms(fn, lead=True))
+            ms, old_ms = statistics.fmean(ms_list), statistics.fmean(old_list)
+        else:
+            ms = cuda_ms(kern, lead=True)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        flops = gla_kernel.gla_flops(B, S, H, K, V, vec=vec, bonus=bonus,
+                                     strict=strict, chunk=chunk)
         nbytes = gla_kernel.gla_bytes(q, k, v, ld, bonus=u,
                                       initial_state=h0)
         bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
         print(f"[kernel] gla_scan {label}: B={B} S={S} H={H} K={K} V={V} "
               f"{str(dt)[6:]} {mode} chunk={chunk} initial state {init}: "
               f"route {route} "
-              + ("(64-row tiles, tensor cores)" if route == "gla_ssd" else
-                 f"(tile {gla_kernel.tile_rows(chunk)}, CUDA cores)")
+              + GLA_ROUTE_NOTE.get(
+                  route, f"(tile {gla_kernel.tile_rows(chunk)}, CUDA cores)")
               + ": "
-              f"max|o kernel-plain|={err.max().item():.3e} of max|o| "
+              f"max|o kernel-plain|={err:.3e} of max|o| "
               f"{o_scale:.3e} (limit {GLA_RTOL:g} x max|o|"
               + (" + 1 bf16 ulp" if ulp else "") + "), max|state "
               f"kernel-plain|={s_err:.3e} of {s_scale:.3e} (limit "
@@ -1086,20 +1127,38 @@ def phase_gla_kernel(card):
               f"{bound_ms:.4f} ms by {by} (matmul flops {flops:.4g} -> "
               f"{ops_ms:.4f} ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms)",
               flush=True)
-        if not (excess <= 0.0 and s_err <= GLA_RTOL * s_scale):
+        if ab:
+            print(f"[kernel] gla_scan {label}: {route} {ms:.4f} ms "
+                  f"({[round(x, 4) for x in ms_list]}) against gla_scan.cu "
+                  f"(CUDA cores, tile {gla_kernel.tile_rows(chunk)}) "
+                  f"{old_ms:.4f} ms ({[round(x, 4) for x in old_list]}), "
+                  f"in turns on the same inputs: {old_ms / ms:.2f}x; "
+                  f"bound {bound_ms:.4f} ms ({ms / bound_ms:.1f}x and "
+                  f"{old_ms / bound_ms:.1f}x it), plain {plain_ms:.4f} ms; "
+                  f"gla_scan.cu max|o - plain| {old_err:.3e}, state "
+                  f"{old_s_err:.3e}", flush=True)
+            if not old_ok:
+                raise AssertionError("gla_scan.cu disagrees with plain at "
+                                     f"{label}")
+        if not ok:
             raise AssertionError(f"gla scan disagrees with plain: {label}")
         records[label] = {
             "name": "gla_scan", "route": "cuda",
             "source": f"src/repro_torch/kernels/linear_scan/csrc/{route}.cu",
             "sources": GLA_SOURCES, "gla_route": route,
             "replaces": "src/repro/kernels/linear_scan/kernel.py:71",
-            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+        if ab:
+            records[label]["gla_scan_cu_ms"] = old_ms
         del q, k, v, ld, o, wo
     rec = records["zamba2 mamba2 prefill"]
-    rec["rwkv6_serving"] = {k: records[RWKV_SERVE_CASE][k] for k in (
-        "source", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-    return rec
+    vec_rec = dict(records[RWKV_SERVE_CASE], name="gla_vec",
+                   at=RWKV_SERVE_CASE)
+    rec["rwkv6_serving"] = {k: vec_rec[k] for k in (
+        "source", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "gla_scan_cu_ms")}
+    return rec, vec_rec
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1305,7 +1364,7 @@ def read_counts():
 OURS = ("pgd_epoch_kernel", "pgd_epoch_ens_kernel", "joint_step_kernel",
         "joint_step_s_kernel", "s_project_kernel", "flash_attention_kernel", "flash_prefill_bf16_kernel",
         "flash_decode_split_kernel", "flash_decode_combine_kernel",
-        "gla_scan_kernel", "gla_ssd_kernel")
+        "gla_scan_kernel", "gla_ssd_kernel", "gla_vec_kernel")
 
 
 def profile_call(fn, fname, what):
@@ -2245,8 +2304,8 @@ def launches_per_call(cfg):
 def gla_route_of(cfg):
     """The route of #5 a bf16 model's scans take: Mamba2's scalar decay the
     tensor-core ``gla_ssd``, RWKV6's per-channel decay, bonus and strict
-    mode ``gla_scan``."""
-    return "gla_scan" if cfg.family == "ssm" else "gla_ssd"
+    mode the tensor-core ``gla_vec``."""
+    return "gla_vec" if cfg.family == "ssm" else "gla_ssd"
 
 
 def phase_serve():
@@ -2309,8 +2368,9 @@ def phase_serve():
                                  f"{want_routes}")
         for r, n in by_route.items():
             routes[r] = routes.get(r, 0) + n
-        # bf16 Mamba2 prefills take the tensor-core scan, RWKV6's gla_scan
-        want_gla = {"gla_ssd": 0, "gla_scan": 0, gla_route_of(cfg): want[1]}
+        # bf16 Mamba2 prefills take gla_ssd, RWKV6's gla_vec
+        want_gla = dict.fromkeys(gla_kernel.SOURCES, 0)
+        want_gla[gla_route_of(cfg)] = want[1]
         print(f"[serve] {arch}: #5 calls by route {gla_by_route} (expected "
               f"{want_gla})", flush=True)
         if gla_by_route != want_gla:
@@ -2356,7 +2416,7 @@ def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
         raise AssertionError(f"{arch}: decode vs prefill gap {gap:.3e}")
 
 
-GLA_KERNELS = ("gla_ssd_kernel", "gla_scan_kernel")
+GLA_KERNELS = ("gla_ssd_kernel", "gla_vec_kernel", "gla_scan_kernel")
 
 
 def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH):
@@ -2527,11 +2587,11 @@ def run_train(label, cfg, steps, profile=None, **kw):
         raise AssertionError(f"[train] {label}: launches {counts}, expected "
                              f"{[0, 0, 0, *want]}")
     # bf16 forwards: #4 on its tensor-core prefill route, #5 on gla_ssd
-    # (Mamba2) or gla_scan (RWKV6)
+    # (Mamba2) or gla_vec (RWKV6)
+    want_gla = dict.fromkeys(gla_kernel.SOURCES, 0)
+    want_gla[gla_route_of(cfg)] = want[1]
     if routes != {"flash_prefill": want[0], "flash_decode": 0,
-                  "flash_attention": 0} or gla_routes != {
-                      "gla_ssd": 0, "gla_scan": 0,
-                      gla_route_of(cfg): want[1]}:
+                  "flash_attention": 0} or gla_routes != want_gla:
         raise AssertionError(f"[train] {label}: routes {routes} / "
                              f"{gla_routes}")
     if profile:
@@ -2957,7 +3017,9 @@ def main():
     phase_build()
     joint, s_project = phase_joint_kernel(card)
     records = [phase_kernels(card), phase_ens_kernel(card), joint,
-               phase_flash_kernel(card), phase_gla_kernel(card), s_project]
+               phase_flash_kernel(card), *phase_gla_kernel(card), s_project]
+    # #5's RWKV6 route (gla_vec.cu): a record of its own, moved last
+    records.append(records.pop(5))
     records[0]["launches"] = phase_main_path()
     phase_sharded()
     phase_calibrate()
@@ -2980,6 +3042,10 @@ def main():
         rec["launches_by_path"] = {"serve": s, "train": t}
     records[4]["launches_by_path_model_route"] = {"serve": gla_serve,
                                                   "train": gla_train}
+    vec = {path: sum(r.get("gla_vec", 0) for r in by_model.values())
+           for path, by_model in (("serve", gla_serve), ("train", gla_train))}
+    records[6]["launches"] = vec["serve"] + vec["train"]
+    records[6]["launches_by_path"] = vec
     phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
     phase_cross_device(closed_loop=True, telemetry=True)

@@ -1,6 +1,6 @@
 """Kernel #5, the chunked GLA scan, on Hopper: build, bind, launch.
 
-Two CUDA C++ sources under ``csrc/`` replace
+Three CUDA C++ sources under ``csrc/`` replace
 ``src/repro/kernels/linear_scan/kernel.py:71`` (``gla_pallas``, body
 ``_gla_kernel``) and compute ``ref.gla_chunked``: the output and the final
 state, from an optional initial state (the TPU kernel returns no final state
@@ -9,11 +9,16 @@ and takes no initial one). ``gla_cuda`` picks one by the call (``route``):
 * bf16 q, k and v with a scalar decay (Mamba2), no bonus, not strict, K and
   V in ``SSD_DIMS``: ``gla_ssd.cu``, 64-row tiles on the tensor cores
   (``mma.sync``), the float32 operands split into two bf16 parts;
-* everything else (float32, RWKV6's per-channel decay and bonus, the strict
+* bf16 q, k and v with a per-channel decay (RWKV6), with or without the
+  bonus, strict or not, K and V in ``SSD_DIMS``: ``gla_vec.cu``, 64-row
+  tiles in 16-row sub-blocks, the decay between two sub-blocks factored
+  into two factors <= 1 so that their scores are products on the tensor
+  cores, only the diagonal sub-blocks' 8-row triangles pairwise on the
+  CUDA cores;
+* everything else (float32, a scalar decay with the bonus or the strict
   mode, other widths): ``gla_scan.cu``, the first port's kernel on the CUDA
   cores. float32 stays there because a bf16 (or TF32) product of float32
-  operands would miss its 1e-4 limit; the per-channel decay's pairwise
-  exp(cum_q[t, k] - cum[s, k]) over (t, s, k) is no single matrix product.
+  operands would miss its 1e-4 limit.
 
 Each source is built and loaded through ``kernels/nvcc.py`` at first use;
 nothing is compiled when this module is imported. ``gla_cuda`` launches on
@@ -31,14 +36,16 @@ import torch
 from repro_torch.kernels import nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"gla_ssd": CSRC / "gla_ssd.cu", "gla_scan": CSRC / "gla_scan.cu"}
+SOURCES = {"gla_ssd": CSRC / "gla_ssd.cu", "gla_vec": CSRC / "gla_vec.cu",
+           "gla_scan": CSRC / "gla_scan.cu"}
 MAX_DIM = 64          # largest K and V the kernels' shared memory holds
 MAX_TILE = 64         # rows of a tile; longer chunks are taken in tiles
-SSD_DIMS = (16, 32, 48, 64)   # the K and V the tensor-core route takes
+SSD_DIMS = (16, 32, 48, 64)   # the K and V the tensor-core routes take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = nvcc.P, nvcc.I
 _ENTRY = {"gla_scan": ("gla_scan_fwd", _P * 8 + _I * 6 + _I * 12 + _I * 3),
-          "gla_ssd": ("gla_ssd_fwd", _P * 7 + _I * 5 + _I * 12)}
+          "gla_ssd": ("gla_ssd_fwd", _P * 7 + _I * 5 + _I * 12),
+          "gla_vec": ("gla_vec_fwd", _P * 8 + _I * 5 + _I * 12 + _I)}
 _libs = {}
 
 
@@ -66,12 +73,14 @@ def _load(name: str):
 
 def route(dtype: torch.dtype, K: int, V: int, *, vec: bool = False,
           bonus: bool = False, strict: bool = False) -> str:
-    """The source that computes a call: ``gla_ssd`` for bf16 with a scalar
-    decay, no bonus, not strict and K, V in ``SSD_DIMS``; else
-    ``gla_scan``."""
-    if (dtype == torch.bfloat16 and not (vec or bonus or strict)
-            and K in SSD_DIMS and V in SSD_DIMS):
-        return "gla_ssd"
+    """The source that computes a call: for bf16 with K, V in ``SSD_DIMS``,
+    ``gla_vec`` with a per-channel decay, ``gla_ssd`` with a scalar decay,
+    no bonus and not strict; else ``gla_scan``."""
+    if dtype == torch.bfloat16 and K in SSD_DIMS and V in SSD_DIMS:
+        if vec:
+            return "gla_vec"
+        if not (bonus or strict):
+            return "gla_ssd"
     return "gla_scan"
 
 
@@ -124,6 +133,25 @@ def gla_cuda(q, k, v, log_decay, *, bonus=None, strict: bool = False,
     if (bonus is not None and not bonus.is_contiguous()) or (
             initial_state is not None and not initial_state.is_contiguous()):
         raise ValueError("bonus and initial_state must be contiguous")
+    name = route(q.dtype, K, V, vec=vec, bonus=bonus is not None,
+                 strict=strict)
+    out = run_source(name, q, k, v, log_decay, bonus=bonus, strict=strict,
+                     chunk=chunk, initial_state=initial_state)
+    if B * H:
+        gla_cuda.launches += 1
+        gla_cuda.routes[name] += 1
+    return out
+
+
+def run_source(name: str, q, k, v, log_decay, *, bonus=None,
+               strict: bool = False, chunk: int = 64, initial_state=None):
+    """Launch source ``name`` on operands ``gla_cuda`` has checked (and
+    count nothing): ``gla_cuda`` calls it with its route; ``chip_smoke.py``
+    and ``tools/gla_probe.py`` call it to time another source on the same
+    call. Returns (o, final_state)."""
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    vec = log_decay.dim() == 4
     sq, sk = nvcc.lead_strides("q", q, 4), nvcc.lead_strides("k", k, 4)
     sv = nvcc.lead_strides("v", v, 4)
     sl = nvcc.lead_strides("log_decay", log_decay, 4 if vec else 3)
@@ -131,20 +159,20 @@ def gla_cuda(q, k, v, log_decay, *, bonus=None, strict: bool = False,
     hT = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
     if B * H == 0:
         return o, hT
-    name = route(q.dtype, K, V, vec=vec, bonus=bonus is not None,
-                 strict=strict)
     fn = _load(name)
     if name == "gla_ssd":
         nvcc.launch(fn, q.device, (
             q, k, v, log_decay, initial_state, o, hT, B, S, H, K, V,
             *sq, *sk, *sv, *sl), name)
+    elif name == "gla_vec":
+        nvcc.launch(fn, q.device, (
+            q, k, v, log_decay, bonus, initial_state, o, hT, B, S, H, K, V,
+            *sq, *sk, *sv, *sl, int(bool(strict))), name)
     else:
         nvcc.launch(fn, q.device, (
             q, k, v, log_decay, bonus, initial_state, o, hT,
             _DTYPES[q.dtype], B, S, H, K, V, *sq, *sk, *sv, *sl, int(vec),
             int(bool(strict)), tile_rows(chunk)), name)
-    gla_cuda.launches += 1
-    gla_cuda.routes[name] += 1
     return o, hT
 
 

@@ -5,8 +5,9 @@ kernel in interpret mode, over the cases of ``tests/test_kernels_gla.py``
 several chunk sizes), output and final state, plus an initial state. The
 CUDA kernels themselves are held against the plain version on the card by
 ``tests/test_torch_kernel_cuda.py`` and ``chip_smoke.py``; here, which of
-them ``kernel.route`` picks for ``chip_smoke.py``'s cases, and the work
-counts behind the bound.
+them ``kernel.route`` picks for ``chip_smoke.py``'s cases, the work counts
+behind the bound, and the sub-block factorisation that ``csrc/gla_vec.cu``
+computes, emulated in float32.
 
 Tolerance: 1e-5 of the largest value (output, or state), in float32:
 both sides run the same float32 arithmetic, summed in another order.
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.linear_scan import kernel as jkernel
 from repro.kernels.linear_scan import ref as jref
@@ -181,23 +183,119 @@ def _chip_smoke():
 
 
 def test_route_of_each_chip_smoke_case():
-    """Mamba2's bf16 scans take the tensor-core source; float32 and RWKV6's
-    per-channel decay, bonus and strict mode stay on the CUDA-core one."""
+    """Mamba2's bf16 scans take the scalar-decay tensor-core source, RWKV6's
+    bf16 scans (per-channel decay, with or without the bonus and the strict
+    mode) the per-channel one; float32 and K or V outside ``SSD_DIMS`` stay
+    on the CUDA-core one."""
     want = {"zamba2 mamba2 prefill": "gla_ssd", "zamba2 ragged": "gla_ssd",
             "zamba2 from a state": "gla_ssd",
             "zamba2 one token from a state": "gla_ssd",
-            "zamba2 float32": "gla_scan", "rwkv6 vector decay": "gla_scan",
-            "rwkv6 bonus + strict": "gla_scan",
-            "rwkv6-7b serving prefill": "gla_scan"}
+            "zamba2 float32": "gla_scan", "rwkv6 vector decay": "gla_vec",
+            "rwkv6 bonus + strict": "gla_vec",
+            "rwkv6 strong decay": "gla_vec", "rwkv6 ragged": "gla_vec",
+            "rwkv6-7b serving prefill": "gla_vec"}
     got = {label: kernel.route(dt, K, V, vec=mode != "scalar",
-                               bonus=mode == "rwkv", strict=mode == "rwkv")
+                               bonus=mode in ("rwkv", "strong"),
+                               strict=mode in ("rwkv", "strong"))
            for label, B, S, H, K, V, dt, mode, chunk, init
            in _chip_smoke().gla_cases()}
     assert got == want
     assert kernel.route(torch.bfloat16, 64, 64) == "gla_ssd"
     for K, V in ((8, 64), (64, 40), (72, 64)):
         assert kernel.route(torch.bfloat16, K, V) == "gla_scan"
+        assert kernel.route(torch.bfloat16, K, V, vec=True, bonus=True,
+                            strict=True) == "gla_scan"
+    assert kernel.route(torch.float32, 64, 64, vec=True) == "gla_scan"
+    assert kernel.route(torch.bfloat16, 64, 64, strict=True) == "gla_scan"
     assert set(kernel.gla_cuda.routes) == set(kernel.SOURCES)
+
+
+def _subblock_scan(q, k, v, ld, u, strict, h0):
+    """``csrc/gla_vec.cu``'s arithmetic in float32: 64-row tiles in 16-row
+    sub-blocks; the pairs of sub-blocks (i, j < i) as products of q_i o
+    exp(cum_q - b_j) and k_j o exp(b_j - cum), b_j the cumulative decay at
+    the last row of sub-block j (both factors <= 1); the diagonal
+    sub-blocks pairwise, with the bonus (or, inclusive, 1 + bonus) on A's
+    diagonal; the state passed at tile boundaries."""
+    T, SB = 64, 16
+    B, S, H, K = q.shape
+    pad = (-S) % T
+
+    def padded(x):
+        return F.pad(x, [0, 0] * (x.dim() - 2) + [0, pad])
+
+    q, k, v, ld = (padded(x) for x in (q, k, v, ld))
+    h = h0.clone() if h0 is not None else torch.zeros(B, H, K, v.shape[-1])
+    eye = torch.eye(SB, dtype=torch.bool)
+    lower = torch.tril(torch.ones(SB, SB, dtype=torch.bool), -1)
+    dk = (0.0 if strict else 1.0) + (u if u is not None else 0.0)
+    outs = []
+    for t0 in range(0, S + pad, T):
+        qc, kc, vc = (x[:, t0:t0 + T] for x in (q, k, v))
+        cum = torch.cumsum(ld[:, t0:t0 + T], 1)               # (B, T, H, K)
+        cq = F.pad(cum, [0, 0, 0, 0, 1, 0])[:, :-1] if strict else cum
+        assert (cq <= 0).all()
+        A = torch.zeros(B, H, T, T)
+        for i in range(T // SB):
+            ti = slice(SB * i, SB * i + SB)
+            for j in range(i):
+                sj = slice(SB * j, SB * j + SB)
+                bj = cum[:, SB * j + SB - 1][:, None]
+                fq, fk = torch.exp(cq[:, ti] - bj), torch.exp(bj - cum[:, sj])
+                assert fq.max() <= 1 and fk.max() <= 1
+                A[:, :, ti, sj] = torch.einsum("bthk,bshk->bhts",
+                                               qc[:, ti] * fq, kc[:, sj] * fk)
+            d = cq[:, ti, None] - cum[:, None, ti]            # (B, t, s, H, K)
+            e = torch.exp(torch.where(lower[None, :, :, None, None], d,
+                                      -torch.inf))
+            diag = torch.einsum("bthk,bthk,hk->bht", qc[:, ti], kc[:, ti],
+                                dk * torch.ones(H, K))
+            A[:, :, ti, ti] = torch.einsum("bthk,bshk,btshk->bhts", qc[:, ti],
+                                           kc[:, ti], e) \
+                + torch.where(eye, diag[..., None], 0.0)
+        o = torch.einsum("bthk,bhkv->bthv", qc * torch.exp(cq), h) \
+            + torch.einsum("bhts,bshv->bthv", A, vc)
+        cl = cum[:, -1]
+        h = torch.exp(cl)[..., None] * h + torch.einsum(
+            "bthk,bthv->bhkv", kc * torch.exp(cl[:, None] - cum), vc)
+        outs.append(o)
+    return torch.cat(outs, 1)[:, :S], h
+
+
+@pytest.mark.parametrize("scale", (3.0, 30.0))
+@pytest.mark.parametrize("strict", (True, False))
+def test_subblock_factorisation_matches_reference(strict, scale):
+    """The emulation against the JAX package, strict with the bonus and
+    inclusive without, from a state, over a ragged 150 rows, within 1e-5
+    of max|o| and of max|state|, finite where factoring through the tile
+    start (exp(-cum)) overflows. At ``chip_smoke.py``'s log decays,
+    -3|N(0, 1)| a step, against ``gla_chunked`` (chunk 64); at decays
+    down to -30 a step against the sequential ``gla_naive``: there a
+    tile's cumulative decay reaches ~1e3 nats, whose float32 rounding
+    puts the chunked forms themselves up to ~1e-5 of max|o| from a
+    float64 scan (JAX's 9e-6, this emulation's and the port's 4e-6)."""
+    B, S, H, K, V = 2, 150, 2, 16, 8
+    rng = np.random.default_rng(int(scale) + 7 * strict)
+
+    def n(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q, k, v, h0 = n(B, S, H, K), n(B, S, H, K), n(B, S, H, V), n(B, H, K, V)
+    ld = (-3.0 * np.abs(n(B, S, H, K)) if scale < 10 else
+          -30.0 * rng.random((B, S, H, K)).astype(np.float32))
+    u = n(H, K) if strict else None
+    t = [torch.tensor(x) for x in (q, k, v, ld)]
+    tu = None if u is None else torch.tensor(u)
+    assert torch.isinf(torch.exp(-torch.cumsum(t[3][:, :64], 1))).any()
+    o, hT = _subblock_scan(*t, tu, strict, torch.tensor(h0))
+    assert torch.isfinite(o).all() and torch.isfinite(hT).all()
+    args = [jnp.asarray(x) for x in (q, k, v, ld)]
+    kw = dict(bonus=None if u is None else jnp.asarray(u), strict=strict,
+              initial_state=jnp.asarray(h0))
+    jo, jhT = (jref.gla_chunked(*args, chunk=64, **kw) if scale < 10
+               else jref.gla_naive(*args, **kw))
+    _close(jo, o, "o")
+    _close(jhT, hT, "state")
 
 
 def test_work_counts_at_zamba2_prefill_unchanged():

@@ -24,8 +24,9 @@ float32 split partials 2e-5 of max(1, max|plain|) against
 ``ref.attention_partials``. The GLA scan (#5):
 1e-4 of max|o| on the output and of max|state| on the final state against
 ``ref.gla_chunked`` (the kernel walks a chunk in tiles of up to 64 rows and
-sums in another order); its tensor-core route (``csrc/gla_ssd.cu``) in bf16
-to ``chip_smoke.py``'s limit, 1e-4 of max|o| plus one bf16 unit in the last
+sums in another order); its tensor-core routes (``csrc/gla_ssd.cu``, scalar
+decay, and ``csrc/gla_vec.cu``, per-channel decay) in bf16 to
+``chip_smoke.py``'s limit, 1e-4 of max|o| plus one bf16 unit in the last
 place of the plain value (both sides round a float32 sum to bf16).
 """
 import dataclasses
@@ -708,9 +709,71 @@ def test_gla_tensor_core_route_matches_plain_on_card(cuda_device, case):
     assert gla_kernel.route(q.dtype, K, V) == "gla_ssd"
     before = dict(gla_kernel.gla_cuda.routes)
     o, hT = gla_ops.gla(q, k, v, ld, chunk=256, initial_state=h0)
-    assert gla_kernel.gla_cuda.routes["gla_ssd"] == before["gla_ssd"] + 1
-    assert gla_kernel.gla_cuda.routes["gla_scan"] == before["gla_scan"]
+    assert {r: gla_kernel.gla_cuda.routes[r] - before[r] for r in before} \
+        == {"gla_ssd": 1, "gla_vec": 0, "gla_scan": 0}
     wo, whT = gla_ref.gla_chunked(q, k, v, ld, chunk=256, initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(hT).all()
+    err = (o.float() - wo.float()).abs()
+    limit = 1e-4 * wo.float().abs().max() + 2.0 ** -7 * wo.float().abs()
+    assert (err <= limit).all(), err.max().item()
+    assert (hT - whT).abs().max().item() <= 1e-4 * whT.abs().max().item()
+
+
+# the per-channel-decay tensor-core route, csrc/gla_vec.cu: bf16, RWKV6
+GLA_VEC_CASES = [
+    # B, S, H, K, V, bonus, strict, initial state, decay scale, misaligned
+    (2, 1, 3, 64, 64, True, True, True, 3.0, False),
+    (2, 15, 3, 64, 64, True, True, False, 3.0, False),
+    (2, 17, 3, 64, 64, False, False, True, 3.0, False),
+    (1, 65, 4, 64, 64, True, False, True, 3.0, False),
+    (2, 65, 3, 32, 32, False, True, False, 3.0, False),
+    (2, 1000, 3, 64, 64, True, True, True, 3.0, False),
+    (1, 1000, 2, 48, 32, False, False, True, 3.0, False),
+    (1, 300, 2, 16, 16, True, True, True, 3.0, False),
+    (1, 300, 2, 16, 64, False, False, True, 3.0, False),
+    (1, 300, 2, 64, 16, True, True, False, 3.0, False),
+    (1, 130, 5, 32, 64, True, False, True, 3.0, False),
+    (1, 130, 5, 48, 48, True, True, True, 3.0, False),
+    (2, 200, 3, 64, 64, True, True, True, 30.0, False),   # <= -30 a step
+    (2, 200, 3, 64, 64, False, False, False, 30.0, False),
+    (2, 90, 3, 64, 32, True, True, True, 3.0, True),      # element loads
+]
+
+
+def _vec_inputs(case, device):
+    B, S, H, K, V, bonus, strict, init, scale, odd = case
+    g = torch.Generator().manual_seed(S * H + K + 2 * V)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g)
+
+    bf = dict(device=device, dtype=torch.bfloat16)
+    if odd:     # q and k one element past a 16-byte boundary
+        q, k = (n(B, S, H, K + 1).to(**bf)[..., 1:] for _ in range(2))
+    else:
+        q, k = n(B, S, H, K).to(**bf), n(B, S, H, K).to(**bf)
+    v = n(B, S, H, V).to(**bf)
+    ld = -scale * n(B, S, H, K).abs() if scale < 10 else \
+        -(scale + n(B, S, H, K).abs())
+    u = n(H, K).to(device) if bonus else None
+    h0 = n(B, H, K, V).to(device) if init else None
+    return q, k, v, ld.to(device), u, h0, strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLA_VEC_CASES)
+def test_gla_vec_route_matches_plain_on_card(cuda_device, case):
+    q, k, v, ld, u, h0, strict = _vec_inputs(case, cuda_device)
+    K, V = q.shape[-1], v.shape[-1]
+    assert gla_kernel.route(q.dtype, K, V, vec=True, bonus=u is not None,
+                            strict=strict) == "gla_vec"
+    kw = dict(bonus=u, strict=strict, chunk=64, initial_state=h0)
+    before = dict(gla_kernel.gla_cuda.routes)
+    o, hT = gla_ops.gla(q, k, v, ld, **kw)
+    assert {r: gla_kernel.gla_cuda.routes[r] - before[r] for r in before} \
+        == {"gla_ssd": 0, "gla_vec": 1, "gla_scan": 0}
+    wo, whT = gla_ref.gla_chunked(q, k, v, ld, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all() and torch.isfinite(hT).all()
     err = (o.float() - wo.float()).abs()
@@ -722,8 +785,8 @@ def test_gla_tensor_core_route_matches_plain_on_card(cuda_device, case):
 @pytest.mark.cuda
 def test_gla_cuda_tensors_never_take_the_plain_scan(cuda_device,
                                                     monkeypatch):
-    """Both routes launch a kernel for CUDA tensors; the plain scan is not
-    a fallback."""
+    """All three routes launch a kernel for CUDA tensors; the plain scan is
+    not a fallback."""
     def plain(*args, **kw):
         raise AssertionError("a CUDA tensor reached ref.gla_chunked")
 
@@ -734,9 +797,12 @@ def test_gla_cuda_tensors_never_take_the_plain_scan(cuda_device,
     gla_ops.gla(q, k, v, ld, chunk=256, initial_state=h0)
     gla_ops.gla(q.float(), k.float(), v.float(), ld, chunk=256,
                 initial_state=h0)
+    q, k, v, ld, u, h0, strict = _vec_inputs(
+        (1, 70, 2, 64, 64, True, True, True, 3.0, False), cuda_device)
+    gla_ops.gla(q, k, v, ld, bonus=u, strict=strict, initial_state=h0)
     torch.cuda.synchronize()
     assert {r: gla_kernel.gla_cuda.routes[r] - before[r]
-            for r in before} == {"gla_ssd": 1, "gla_scan": 1}
+            for r in before} == {"gla_ssd": 1, "gla_vec": 1, "gla_scan": 1}
 
 
 # ------------------------------ gradients through kernels #4 and #5 (train)
@@ -810,3 +876,35 @@ def test_gla_gradients_through_the_kernel_on_card(cuda_device, dtype):
     want = torch.autograd.grad((o2.float() * w).sum() + h2.square().sum(),
                                leaves)
     assert max(_grad_gaps(got, want)) <= tol
+
+
+@pytest.mark.cuda
+def test_gla_rwkv6_gradients_through_the_kernel_on_card(cuda_device):
+    """RWKV6's mode (per-channel decay, bonus, strict, an initial state) in
+    bf16 through ``GLAScan``: one launch on ``gla_vec``, outputs within the
+    route's limits of the plain version, and, from the output's gradient,
+    the plain version's gradients to every input bit for bit (the backward
+    recomputes the plain version on the same inputs)."""
+    B, S, H_, K = 2, 70, 4, 32
+    r, k, v = _grad_leaves(((B, S, H_, K),) * 3, torch.bfloat16, 3)
+    raw, u, h0 = _grad_leaves(((B, S, H_, K), (H_, K), (B, H_, K, K)),
+                              torch.float32, 4)
+
+    def inputs():
+        return r, k, v, -torch.exp(0.5 * raw)
+
+    kw = dict(bonus=u, strict=True, chunk=64, initial_state=h0)
+    before = dict(gla_kernel.gla_cuda.routes)
+    o, hT = gla_ops.gla(*inputs(), **kw)
+    assert {n: gla_kernel.gla_cuda.routes[n] - before[n] for n in before} \
+        == {"gla_ssd": 0, "gla_vec": 1, "gla_scan": 0}
+    assert type(o.grad_fn).__name__ == "GLAScanBackward"
+    o2, h2 = gla_ref.gla_chunked(*inputs(), **kw)
+    limit = 1e-4 * o2.float().abs().max() + 2.0 ** -7 * o2.float().abs()
+    assert ((o.float() - o2.float()).abs() <= limit).all()
+    assert (hT - h2).abs().max() <= 1e-4 * h2.abs().max()
+    w = torch.randn(o.shape, device="cuda")
+    leaves = (r, k, v, raw, u, h0)
+    got = torch.autograd.grad((o.float() * w).sum(), leaves)
+    want = torch.autograd.grad((o2.float() * w).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
