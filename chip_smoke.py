@@ -27,10 +27,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    plain runs), the least time the card could take for the same work and
    the shuffle-issue floor of each kernel's layout (#1 and #2: row groups
    of ``kernel.LANES`` lanes); and #2 over identical members against #1. Then flash attention (#4) at
-   the serving path's prefill and decode shapes of Zamba2-7B and
-   Qwen3-0.6B, a ragged length, and GQA, window and softcap cases, timed
+   the serving path's prefill and decode shapes of Zamba2-7B,
+   Qwen3-0.6B and DeepSeekMoE-16B (16 heads of 128; its decode in float32
+   too), a ragged length, and GQA, window and softcap cases, timed
    beside ``scaled_dot_product_attention``, with each call's route (and
-   key splits for decode), TFLOP/s and share of the bound; at the four
+   key splits for decode), TFLOP/s and share of the bound; at the six
    bf16 serving calls, how the route rounds P (against the reference and
    against float32 attention, the TPU kernel's arithmetic); the decode
    route's float32 split partials against ``ref.attention_partials``;
@@ -95,13 +96,21 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    day steps of the same fleet, bit for bit (20 launches of #1 a day);
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
-   Qwen3-0.6B and RWKV6-7B, 2 rounds of 4 prompts of 1,024 tokens and 32
-   decoded tokens each, with exact launch counts of #4 and #5 (and their
-   calls by route: RWKV6's 64 scans all on ``gla_vec``), prefill and
+   Qwen3-0.6B, RWKV6-7B and DeepSeekMoE-16B, 2 rounds of 4 prompts of
+   1,024 tokens and 32 decoded tokens each, with exact launch counts of #4
+   and #5 (and their calls by route: RWKV6's 64 scans all on ``gla_vec``;
+   DeepSeekMoE's 56 prefill and 1,792 decode calls of #4), prefill and
    per-token times, tokens/s and peak memory; a full-width check of a
    decode step's logits against the prefill of the same tokens; one
    profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
    busy share and #5's share of it) and one profiled decode step of each;
+   for DeepSeekMoE the share of routed assignments each round's prefill
+   dropped at the published capacity factor of 1.25, the same prefill
+   twice bit for bit, the decode check at a capacity factor of 11 (E / k
+   rounded up: a slot for every token) with no assignment dropped, held
+   in float32 at full width and depth (in bf16 printed: route flips move
+   it past 5e-2), and a profiled prefill and decode step with #4's
+   share;
 6b. the trainer on the card (``launch.train.train``, bf16, random weights
    from a seed, the reference trainer's batch 8, sequence 256, lr 3e-3 and
    warmup 20): Qwen3-0.6B at full published width for 20 steps with the
@@ -116,10 +125,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    |value| (and whether bit for bit), forward + backward timed each way;
    a Qwen3 step's forward, backward and update times and one profiled
    step (table in chiprun_out/profile_train_step.txt);
-   Zamba2-7B at its published widths and 12 of 81 layers, and RWKV6-7B at
-   its published widths and 8 of 32 layers, for 2 steps each, with exact
-   launches of #4 and #5 (RWKV6's on ``gla_vec``; its step's parts and
-   a profiled step after them), and #5's Function at
+   Zamba2-7B at its published widths and 12 of 81 layers, RWKV6-7B at
+   its published widths and 8 of 32 layers, and DeepSeekMoE-16B at its
+   published widths and 4 of 28 layers (its aux loss finite each step),
+   for 2 steps each, with exact launches of #4 and #5 (RWKV6's on
+   ``gla_vec``; its step's parts and a profiled step after them), and
+   #5's Function at
    RWKV6's training shape (bonus, strict) against the plain route; and
    ``python -m repro_torch.launch.train
    --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
@@ -133,11 +144,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    records within the classes of tests/test_torch_telemetry_rollout.py;
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
-   and the serving smoke configs (Zamba2, Qwen3 and RWKV6) in float32,
-   cuda against cpu (logits of prefill and 4 decode steps, greedy
+   and the serving smoke configs (Zamba2, Qwen3, RWKV6 and DeepSeekMoE) in
+   float32, cuda against cpu (logits of prefill and 4 decode steps, greedy
    tokens);
-8. one ``{"kernels": [...]}`` JSON line (#5's launches by path, model and
-   route among its keys; its RWKV6 route ``gla_vec`` also as a record of
+8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model
+   and its times at every case, #5's launches by path, model and
+   route among their keys; its RWKV6 route ``gla_vec`` also as a record of
    its own, with ``gla_scan.cu``'s time beside it), the ``nvidia-smi``
    line, and last
    ``{"ok": true, "device": {...}}``.
@@ -794,9 +806,10 @@ DECODE_POS = SERVE_PROMPT + SERVE_GEN // 2   # a mid-generation decode step
 
 def flash_cases():
     """(label, B, Sq, Sk, N, K, H, dtype, mask options): the prefill and
-    decode calls of Zamba2-7B's shared block (32 heads of 112) and
-    Qwen3-0.6B's layers (16 query heads on 8 KV heads of 128), a ragged
-    length, float32, and Gemma2-9B's widths (16 on 8 heads of 256) with its
+    decode calls of Zamba2-7B's shared block (32 heads of 112),
+    Qwen3-0.6B's layers (16 query heads on 8 KV heads of 128) and
+    DeepSeekMoE-16B's layers (16 heads of 128, MHA), a ragged length,
+    float32, and Gemma2-9B's widths (16 on 8 heads of 256) with its
     softcap of 50 and a 512-key window. The decode shapes run in float32
     too: there the 2e-5 limit is far below the ~1e-3 that one key too many
     or too few (an off-by-one ``length`` or ``q_offset``) moves an output
@@ -818,6 +831,9 @@ def flash_cases():
          dict(causal=True, window=512, softcap=50.0)),
         ("gemma2 decode window + softcap", 2, 1, M, 16, 8, 256, bf,
          dict(dec, window=512, softcap=50.0)),
+        ("deepseek-moe prefill", B, P, P, 16, 16, 128, bf, dict(causal=True)),
+        ("deepseek-moe decode", B, 1, M, 16, 16, 128, bf, dec),
+        ("deepseek-moe decode float32", B, 1, M, 16, 16, 128, f, dec),
     ]
 
 
@@ -916,13 +932,17 @@ def phase_flash_kernel(card):
     flash_partials_check()
     rec = records["zamba2 prefill"]
     rec["decode_ms"] = records["zamba2 decode"]["ms"]
+    rec["by_case"] = {label: {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")} for label, r in records.items()}
     return rec
 
 
 # the bf16 serving calls whose rounding of P is held against the TPU
 # kernel's arithmetic
 P_ROUNDING_CASES = ("zamba2 prefill", "zamba2 decode", "qwen3 prefill (GQA)",
-                    "qwen3 decode (GQA)")
+                    "qwen3 decode (GQA)", "deepseek-moe prefill",
+                    "deepseek-moe decode")
 
 
 def p_rounding(label, route, got, want, q, k, v, mask):
@@ -2283,16 +2303,27 @@ def phase_fleet():
 
 # ------------------------------------------------- phase 6: serving path
 
-SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b")
+SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b")
 CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
+FLOAT32_CONSISTENCY_TOL = 1e-4        # the same in float32 (serving's golden)
+
+
+def no_drop_capacity(m):
+    """The least whole capacity factor at which every expert has a slot for
+    each token of its group (C >= S), so that no prefill can drop: an MoE
+    model's decode-vs-prefill check runs there, as
+    tests/test_decode_consistency.py:20-22 raises the smoke configs' to
+    8.0 (at the published 1.25 the reference's own prefill drops tokens
+    that its no_drop decode keeps)."""
+    return float(math.ceil(m.num_experts / m.top_k))
 
 
 def launches_per_call(cfg):
     """Launches of (#4, #5) in one prefill and in one decoded token: Zamba2
     runs the scan once a Mamba2 layer in a prefill and its shared block
     once a group in both; RWKV6 the scan once a layer in a prefill and
-    nothing in decode (its step is plain); a dense model runs attention
-    once a layer in both."""
+    nothing in decode (its step is plain); a dense or MoE model runs
+    attention once a layer in both."""
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
         return (groups, cfg.num_layers), (groups, 0)
@@ -2309,17 +2340,20 @@ def gla_route_of(cfg):
 
 
 def phase_serve():
-    """Carbon-aware serving at full published width on the card: the
-    three models, exact launch counts (#4's and #5's by route too), a
-    decode-vs-prefill check, a profiled Zamba2 prefill and decode step and
-    a profiled RWKV6 prefill. Returns the launches of #4 and #5, their
-    calls by route, and #5's calls by model and route."""
+    """Carbon-aware serving at full published width on the card: the four
+    models, exact launch counts (#4's and #5's by route too), a
+    decode-vs-prefill check, a profiled prefill and decode step of Zamba2,
+    RWKV6 and DeepSeekMoE, and DeepSeekMoE's routing checks
+    (``moe_serve_checks``). Returns the launches of #4 and #5, their calls
+    by route, #5's calls by model and route, and #4's launches by
+    model."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     totals, routes, gla_routes, gla_by_model = [0, 0], {}, {}, {}
+    fa_by_model = {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).config.replace(remat="none")
         t0 = time.perf_counter()
@@ -2386,18 +2420,28 @@ def phase_serve():
                 raise AssertionError(f"{arch}: round {r} tokens malformed")
         totals[0] += counts[3]
         totals[1] += counts[4]
-        decode_consistency(arch, cfg, model)
+        if counts[3]:
+            fa_by_model[arch] = counts[3]
+        if cfg.moe:
+            moe_serve_checks(arch, cfg, model, res)
+        else:
+            decode_consistency(arch, cfg, model)
         if cfg.family in ("hybrid", "ssm"):
             profile_prefill(arch, model, res.prefill_ms)
             profile_decode(arch, model)
         del model
         torch.cuda.empty_cache()
-    return totals, routes, gla_routes, gla_by_model
+        if cfg.moe:
+            moe_float32_consistency(arch, cfg)
+    return totals, routes, gla_routes, gla_by_model, fa_by_model
 
 
-def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
+def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT,
+                       tol=CONSISTENCY_TOL):
     """The logits of a decode step after prefilling T - 1 tokens against
-    the prefill of all T tokens (no plain path runs), in bf16."""
+    the prefill of all T tokens (no plain path runs), in the model's type,
+    held within ``tol`` of max|logit| (``tol=None``: printed, not held).
+    Returns the gap."""
     g = torch.Generator(device="cuda").manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
                          device="cuda")
@@ -2409,20 +2453,37 @@ def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT):
         raise AssertionError(f"{arch}: non-finite logits")
     gap = (dec - full).abs().max().item() / full.abs().max().item()
     print(f"[serve] {arch}: decode step after a {T - 1}-token prefill vs "
-          f"the {T}-token prefill: max|logit gap| / max|logit| = {gap:.3e} "
-          f"(limit {CONSISTENCY_TOL:g}); logits {tuple(full.shape)}, finite",
-          flush=True)
-    if not gap <= CONSISTENCY_TOL:
+          f"the {T}-token prefill ({cfg.dtype}): max|logit gap| / max|logit| "
+          f"= {gap:.3e} ("
+          + ("not held here" if tol is None else f"limit {tol:g}")
+          + f"); logits {tuple(full.shape)}, finite", flush=True)
+    if tol is not None and not gap <= tol:
         raise AssertionError(f"{arch}: decode vs prefill gap {gap:.3e}")
+    return gap
 
 
 GLA_KERNELS = ("gla_ssd_kernel", "gla_vec_kernel", "gla_scan_kernel")
+FLASH_KERNELS = ("flash_prefill_bf16_kernel", "flash_decode_split_kernel",
+                 "flash_decode_combine_kernel", "flash_attention_kernel")
+# the kernel whose share of a profiled prefill or decode step is printed
+PROFILED = {"#4": FLASH_KERNELS, "#5": GLA_KERNELS}
 
 
-def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH):
+def kernel_share(arch, what, which, ours, busy_ms, wall_ms):
+    """Kernel ``which``'s device ms in a profiled call, and its share of
+    the busy time and of the wall."""
+    ms = sum(ours.get(k, 0.0) for k in PROFILED[which])
+    print(f"[profile] {arch} {what}: kernel {which} {ms:.2f} ms of the "
+          f"device's {busy_ms:.1f} busy ms ({100 * ms / busy_ms:.1f}%), "
+          f"{100 * ms / wall_ms:.1f}% of the profiled wall {wall_ms:.1f} ms; "
+          f"the device busy {100 * busy_ms / wall_ms:.1f}% of it", end="",
+          flush=True)
+
+
+def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH, which="#5"):
     """One prefill of the serving shape under torch.profiler, after a warm
-    one: the device's busy share and kernel #5's share of it (table in
-    chiprun_out/profile_serve_prefill.txt for Zamba2-7B,
+    one: the device's busy share and kernel ``which``'s share of it (table
+    in chiprun_out/profile_serve_prefill.txt for Zamba2-7B,
     profile_serve_prefill_<arch>.txt for the others)."""
     toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
                          device="cuda")
@@ -2436,18 +2497,14 @@ def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH):
         f"profile_serve_prefill_{arch}.txt"
     wall_ms, busy_ms, ours, _ = profile_call(
         prefill, fname, f"one {arch} prefill ({B} x {SERVE_PROMPT} tokens)")
-    gla_ms = sum(ours.get(k, 0.0) for k in GLA_KERNELS)
-    print(f"[profile] {arch} prefill: kernel #5 {gla_ms:.2f} ms of the "
-          f"device's {busy_ms:.1f} busy ms ({100 * gla_ms / busy_ms:.1f}%), "
-          f"{100 * gla_ms / wall_ms:.1f}% of the profiled wall "
-          f"{wall_ms:.1f} ms; the device busy "
-          f"{100 * busy_ms / wall_ms:.1f}% of it (serve's unprofiled "
-          f"prefills: {', '.join(f'{x:.1f}' for x in prefill_ms)} ms)",
-          flush=True)
+    kernel_share(arch, "prefill", which, ours, busy_ms, wall_ms)
+    print(f" (serve's unprofiled prefills: "
+          f"{', '.join(f'{x:.1f}' for x in prefill_ms)} ms)", flush=True)
 
 
-def profile_decode(arch, model, B=SERVE_BATCH):
-    """One decode step under torch.profiler, after a prefill (table in
+def profile_decode(arch, model, B=SERVE_BATCH, which=None):
+    """One decode step under torch.profiler, after a prefill, with kernel
+    ``which``'s share of it if given (table in
     chiprun_out/profile_serve_decode.txt for Zamba2-7B,
     profile_serve_decode_<arch>.txt for the others)."""
     toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
@@ -2463,8 +2520,161 @@ def profile_decode(arch, model, B=SERVE_BATCH):
 
         fname = "profile_serve_decode.txt" if arch == "zamba2-7b" else \
             f"profile_serve_decode_{arch}.txt"
-        profile_call(step, fname, f"one {arch} decode step (batch {B}, "
-                     f"cache {SERVE_MAX_SEQ})")
+        wall_ms, busy_ms, ours, _ = profile_call(
+            step, fname, f"one {arch} decode step (batch {B}, cache "
+            f"{SERVE_MAX_SEQ})")
+    if which:
+        kernel_share(arch, "decode step", which, ours, busy_ms, wall_ms)
+        print(flush=True)
+
+
+def moe_layers(model):
+    from repro_torch.models.moe import MoE
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
+@contextmanager
+def routed(model):
+    """What every MoE layer the model runs inside the block routes: a
+    forward pre-hook on each layer routes the layer's input again with
+    ``moe._route`` and ``moe._positions`` (grouped as ``apply_moe`` groups
+    it, with its ``no_drop``), which the layer's own output does not depend
+    on. Yields a dict that holds, after the block, ``dropped`` and
+    ``assignments`` (the routed assignments past their expert's capacity,
+    and all of them) and ``last``: for each layer call in order, the
+    sorted top-k experts of the input's last position, a row each."""
+    from repro_torch.models import moe as M
+    kept, last = [], []
+
+    def hook(mod, args, kwargs):
+        x, m = args[0], mod.cfg.moe
+        B, S, D = x.shape
+        gs = M._group_size(m, B, S)
+        _, _, topi = M._route(m, x.reshape(B * S // gs, gs, D), mod.router)
+        kept.append(M._positions(m, topi, gs, kwargs.get("no_drop",
+                                                          False))[1])
+        last.append(topi.reshape(B, S, -1)[:, -1].sort(-1).values)
+
+    handles = [mod.register_forward_pre_hook(hook, with_kwargs=True)
+               for mod in moe_layers(model)]
+    out = {}
+    try:
+        yield out
+    finally:
+        for h in handles:
+            h.remove()
+    out["dropped"] = sum(int((~k).sum()) for k in kept)
+    out["assignments"] = sum(k.numel() for k in kept)
+    out["last"] = last
+
+
+def checked_consistency(arch, cfg, model, tol):
+    """``decode_consistency`` under ``routed``: the routed assignments its
+    two prefills and decode step dropped (there must be none), and in how
+    many (row, MoE layer) pairs the decoded token's top-k experts differ
+    from those of the full prefill's last position."""
+    n = len(moe_layers(model))
+    with routed(model) as seen:
+        decode_consistency(arch, cfg, model, tol=tol)
+    dec, full = seen["last"][n:2 * n], seen["last"][2 * n:]
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(dec, full))
+    print(f"[serve] {arch} ({cfg.dtype}): at capacity factor "
+          f"{cfg.moe.capacity_factor:g} the check's two prefills and decode "
+          f"step dropped {seen['dropped']} of {seen['assignments']} routed "
+          f"assignments; the decoded token's top-{cfg.moe.top_k} experts "
+          f"differ from the full prefill's last position's in {flips} of "
+          f"{dec[0].shape[0] * n} (row, MoE layer) pairs", flush=True)
+    if seen["dropped"]:
+        raise AssertionError(f"{arch}: the decode check's prefill dropped "
+                             f"{seen['dropped']} assignments")
+
+
+@contextmanager
+def moe_capacity(model, factor):
+    """The model's MoE layers at another capacity factor inside the block
+    (every module that holds the model's config gets a copy with it)."""
+    import dataclasses
+    old = model.cfg
+    new = old.replace(moe=dataclasses.replace(old.moe,
+                                              capacity_factor=factor))
+    mods = [m for m in model.modules() if getattr(m, "cfg", None) is old]
+    for m in mods:
+        m.cfg = new
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.cfg = old
+
+
+def moe_float32_consistency(arch, cfg):
+    """The decode-vs-prefill check of an MoE model at full published width
+    and depth in float32 (built from seed 0 once the bf16 model is freed;
+    ~61 GiB of weights for DeepSeekMoE-16B) at ``no_drop_capacity``, held
+    within FLOAT32_CONSISTENCY_TOL: the decode path against the prefill
+    without bf16's rounding, and no assignment dropped."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    cfg = cfg.replace(dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=no_drop_capacity(cfg.moe)))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda", seed=0)
+    checked_consistency(arch, cfg, model, tol=FLOAT32_CONSISTENCY_TOL)
+    weights = sum(p.numel() for p in model.parameters()) * 4 / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve] {arch} (float32): weights {weights:.2f} GiB, peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def moe_serve_checks(arch, cfg, model, res):
+    """After ``serve``: each round's prefill again on its prompts (serve's
+    ``RandomState(0)`` stream) with the routed assignments it dropped at
+    the config's capacity factor counted; round 0's prefill once more,
+    its logits and cache bit for bit the first's (the dispatch adds in no
+    order that varies); decode against prefill at ``no_drop_capacity``,
+    where the prefills must drop nothing, printed and not held in bf16
+    (a routing boundary crossed in bf16 moves the logits by more than
+    bf16's limit; ``moe_float32_consistency`` holds the check in float32);
+    a profiled prefill and decode step with #4's share."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    m = cfg.moe
+    for r, bsz in enumerate(res.batches):
+        toks = torch.tensor(rng.randint(1, cfg.vocab_size,
+                                        size=(bsz, SERVE_PROMPT)),
+                            device="cuda")
+        with routed(model) as drops, torch.inference_mode():
+            logits, cache = model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
+        torch.cuda.synchronize()
+        gs = min(m.group_size, bsz * SERVE_PROMPT)
+        print(f"[serve] {arch}: round {r} prefill ({bsz} x {SERVE_PROMPT} "
+              f"tokens, groups of {gs}, capacity factor {m.capacity_factor}"
+              f", {m.num_experts} experts, top {m.top_k}): "
+              f"{drops['dropped']} of {drops['assignments']} routed "
+              f"assignments dropped "
+              f"({100 * drops['dropped'] / drops['assignments']:.3f}%) over "
+              f"its {len(moe_layers(model))} MoE layers", flush=True)
+        if r:
+            continue
+        with torch.inference_mode():
+            again, cache2 = model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
+        leaves = [(k, n) for k in cache for n in cache[k]]
+        same = torch.equal(logits, again) and all(
+            torch.equal(cache[k][n], cache2[k][n]) for k, n in leaves)
+        print(f"[serve] {arch}: round 0's prefill run twice: logits and "
+              f"{len(leaves)} cache leaves bit for bit equal: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{arch}: two prefills of the same tokens "
+                                 f"differ")
+        del cache, cache2, logits, again
+    with moe_capacity(model, no_drop_capacity(m)):
+        checked_consistency(arch, model.cfg, model, tol=None)
+    profile_prefill(arch, model, res.prefill_ms, which="#4")
+    profile_decode(arch, model, which="#4")
 
 
 # ----------------------------------------------- phase 6b: the trainer
@@ -2480,6 +2690,9 @@ ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 2
 # RWKV6-7B at its published widths, cut to 8 of 32 layers (~2.3 B
 # parameters, ~29 GB with AdamW's moments; ~95 GB at full depth)
 RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 2
+# DeepSeekMoE-16B at its published widths, cut to 4 of 28 layers (its dense
+# first layer and 3 MoE layers; ~2.3 B parameters, about RWKV6's at 8)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2
 GRAD_TOL = 2e-2                       # Function vs plain gradients, x max
 RESUME_TOL = 1e-5                     # tests/test_checkpoint_data.py:69
 BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
@@ -2487,9 +2700,9 @@ BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
 
 def train_counts(cfg, steps):
     """Launches of (#4, #5) in ``steps`` train steps: the forward of every
-    attention layer (Zamba2's shared block once a group) and every Mamba2
-    or RWKV6 layer; the backward recomputes the plain versions and
-    launches none."""
+    attention layer (Zamba2's shared block once a group; a dense or MoE
+    model's every layer) and every Mamba2 or RWKV6 layer; the backward
+    recomputes the plain versions and launches none."""
     if cfg.family == "hybrid":
         return steps * (cfg.num_layers // cfg.attn_every), \
             steps * cfg.num_layers
@@ -2544,7 +2757,8 @@ def step_parts(label, model, cfg, fname):
 def run_train(label, cfg, steps, profile=None, **kw):
     """``launch.train.train`` of a model built from ``cfg`` (seed 0) on the
     card with the counters at 0 just before it; exact launches of #4 and
-    #5 (and their routes), a finite loss every step; with ``profile``, a
+    #5 (and their routes), a finite loss every step (and for an MoE model
+    a finite aux loss, read from the loss's metrics); with ``profile``, a
     step's parts and a profiled step after it (``step_parts``). Returns
     the result and the launches of #4 and #5 counted in the run."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -2558,6 +2772,16 @@ def run_train(label, cfg, steps, profile=None, **kw):
     print(f"[train] {label}: {n / 1e9:.3f} B parameters ({cfg.dtype}, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}), built on the "
           f"card from seed 0 in {time.perf_counter() - t0:.2f} s", flush=True)
+    auxes = []
+    if cfg.moe:
+        loss_of = model.loss
+
+        def loss_and_aux(batch):
+            loss, metrics = loss_of(batch)
+            auxes.append(metrics["aux_loss"].detach())
+            return loss, metrics
+
+        model.loss = loss_and_aux
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = train(model=model, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -2583,6 +2807,14 @@ def run_train(label, cfg, steps, profile=None, **kw):
     if not all(map(math.isfinite, res.step_losses)) \
             or len(res.step_losses) != steps:
         raise AssertionError(f"[train] {label}: a loss is not finite")
+    if cfg.moe:
+        aux = [float(a) for a in auxes]
+        print(f"[train] {label}: aux loss each step {aux} (router_aux_weight "
+              f"{cfg.moe.router_aux_weight}, summed over "
+              f"{cfg.num_layers - cfg.moe.first_dense_layers} MoE layers)",
+              flush=True)
+        if len(aux) != steps or not all(map(math.isfinite, aux)):
+            raise AssertionError(f"[train] {label}: aux loss {aux}")
     if counts != [0, 0, 0, *want]:
         raise AssertionError(f"[train] {label}: launches {counts}, expected "
                              f"{[0, 0, 0, *want]}")
@@ -2768,8 +3000,10 @@ def phase_train():
     printed), loss finite and falling; the autograd Functions' gradients
     against the plain route; Zamba2-7B and RWKV6-7B at their published
     widths and ZAMBA_TRAIN_LAYERS / RWKV_TRAIN_LAYERS layers; the
-    kill-and-resume replay. Returns the launches of #4 and #5 on the
-    training runs, and #5's calls by model and route."""
+    kill-and-resume replay; DeepSeekMoE-16B at its published widths and
+    MOE_TRAIN_LAYERS layers. Returns the launches of #4 and #5 on the
+    training runs, #5's calls by model and route, and #4's launches by
+    model."""
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen3-0.6b").config.replace(remat="none")
     res, launched, _ = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
@@ -2795,9 +3029,17 @@ def phase_train():
     _, rlaunched, rroutes = run_train(
         f"rwkv6-7b ({RWKV_TRAIN_LAYERS} of 32 layers)", rcfg,
         RWKV_TRAIN_STEPS, profile="profile_train_step_rwkv6-7b.txt")
-    totals = [a + b + c for a, b, c in zip(totals, zlaunched, rlaunched)]
+    mcfg = get_arch("deepseek-moe-16b").config.replace(
+        num_layers=MOE_TRAIN_LAYERS, remat="none")
+    _, mlaunched, _ = run_train(
+        f"deepseek-moe-16b ({MOE_TRAIN_LAYERS} of 28 layers)", mcfg,
+        MOE_TRAIN_STEPS)
+    totals = [a + b + c + d for a, b, c, d in
+              zip(totals, zlaunched, rlaunched, mlaunched)]
     kill_and_resume()
-    return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}
+    fa_by_model = {"qwen3-0.6b": launched[0], "zamba2-7b": zlaunched[0],
+                   "deepseek-moe-16b": mlaunched[0]}
+    return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model
 
 
 def phase_serve_golden(gen=4):
@@ -3034,9 +3276,11 @@ def main():
     records[0].update(phase_closed_loop(card))
     phase_telemetry()
     serving, records[3]["launches_by_route"], \
-        records[4]["launches_by_route"], gla_serve = phase_serve()
+        records[4]["launches_by_route"], gla_serve, fa_serve = phase_serve()
     # #4 and #5 run on two paths, each counted from 0: serving and training
-    training, gla_train = phase_train()
+    training, gla_train, fa_train = phase_train()
+    records[3]["launches_by_path_model"] = {"serve": fa_serve,
+                                            "train": fa_train}
     for rec, s, t in zip(records[3:5], serving, training):
         rec["launches"] = s + t
         rec["launches_by_path"] = {"serve": s, "train": t}

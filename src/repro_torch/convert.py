@@ -119,10 +119,13 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
     leaves as ``ml_dtypes`` arrays) -> the port's ``state_dict`` for
     ``build_model(cfg)``: layer ``i`` of a stacked subtree (``stack``,
     ``trail``; ``groups`` with two axes, group and layer) becomes module
-    ``<key>.i`` (``groups.g.i``), and each leaf keeps its type. Raises if
-    a stacked subtree does not hold ``cfg``'s layers."""
+    ``<key>.i`` (``groups.g.i``), an unstacked subtree (an MoE model's
+    ``prefix_{i}``) module ``<key>``, and each leaf keeps its type. Raises
+    if a stacked subtree does not hold ``cfg``'s layers (an MoE model's
+    ``stack`` holds those after its ``first_dense_layers``)."""
     m = cfg.attn_every or 1
-    layers = {"stack": (cfg.num_layers,),
+    n_prefix = cfg.moe.first_dense_layers if cfg.moe else 0
+    layers = {"stack": (cfg.num_layers - n_prefix,),
               "groups": (cfg.num_layers // m, m),
               "trail": (cfg.num_layers % m,)}
     state = {}

@@ -1,7 +1,7 @@
 """``build_model``: the counterpart of ``repro.models.model.build_model``
-for the families ported so far (dense, hybrid and RWKV6's ssm). The
-reference's ``param_specs``, ``cache_specs``, ``batch_specs`` and
-``input_specs`` are ``jax.eval_shape`` dry-run helpers and have no
+for the families ported so far (dense, MoE without MLA, hybrid and RWKV6's
+ssm). The reference's ``param_specs``, ``cache_specs``, ``batch_specs``
+and ``input_specs`` are ``jax.eval_shape`` dry-run helpers and have no
 counterpart (ROADMAP.md: out of scope on one card)."""
 from __future__ import annotations
 
@@ -10,9 +10,10 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.models.transformer import DecoderLM, RWKVLM, ZambaLM
 
-_LATER = ("ROADMAP.md queue 1, item 4: the MoE, VLM, MLA and "
-          "encoder-decoder models are ported one a PR")
-_MODELS = {"dense": DecoderLM, "hybrid": ZambaLM, "ssm": RWKVLM}
+_LATER = ("ROADMAP.md queue 1, item 4: the VLM, MLA and encoder-decoder "
+          "models are ported one a PR")
+_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "hybrid": ZambaLM,
+           "ssm": RWKVLM}
 
 
 def build_model(cfg, device=None, *, seed: int = 0, generator=None):
@@ -21,10 +22,12 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     ``generator`` or a generator on that device seeded with ``seed``.
     Raises ``NotImplementedError`` for a family or option not ported."""
     dev = device_mod.resolve(device)
-    if cfg.family not in _MODELS or cfg.mla is not None \
-            or cfg.moe is not None:
+    if cfg.family not in _MODELS:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   f"ported yet ({_LATER})")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
+                                  f"yet ({_LATER})")
     if cfg.flash_decode:
         raise NotImplementedError(f"{cfg.name}: flash_decode shards the "
                                   "cache over a mesh; out of scope on one "

@@ -1,14 +1,16 @@
-"""Decoder LMs: the dense ``DecoderLM``, the hybrid ``ZambaLM`` (Mamba2
-backbone plus one weight-shared attention block) and the attention-free
-``RWKVLM`` (RWKV6). The counterpart of ``repro.models.transformer``'s
-blocks and those three models, without their MLA, MoE and VLM branches
-(ROADMAP.md queue 1, item 4).
+"""Decoder LMs: ``DecoderLM`` (the dense and MoE families), the hybrid
+``ZambaLM`` (Mamba2 backbone plus one weight-shared attention block) and
+the attention-free ``RWKVLM`` (RWKV6). The counterpart of
+``repro.models.transformer``'s blocks and those models, without their MLA
+and VLM branches (ROADMAP.md queue 1, item 4).
 
 The reference stacks per-layer parameters for ``lax.scan``; here each
 layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
-``attn_every`` Mamba2 layers and the ``trail`` after them), named as the
-reference names its parameters, so ``convert.model_params_from_numpy``
-carries a reference model across. Every model exposes
+``attn_every`` Mamba2 layers and the ``trail`` after them; an MoE model's
+leading dense blocks ``prefix_{i}`` stay single modules, as they stay
+single subtrees there), named as the reference names its parameters, so
+``convert.model_params_from_numpy`` carries a reference model across.
+Every model exposes
 
     loss(batch) -> (loss, metrics)
     init_cache(batch, max_seq) -> decode cache
@@ -31,15 +33,18 @@ import torch.nn.functional as F
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.moe import MoE
 
 f32 = torch.float32
 
 
 class Block(nn.Module):
     """``init_block`` / ``apply_block`` / ``apply_block_decode`` with the
-    GQA mixer and the MLP."""
+    GQA mixer and the ``ffn`` of the reference's kind: ``"mlp"`` (width
+    ``d_ff``), ``"dense_prefix"`` (an MoE model's leading dense blocks,
+    width ``moe.dense_d_ff``) or ``"moe"``."""
 
-    def __init__(self, cfg, dtype, *, generator, device):
+    def __init__(self, cfg, dtype, *, generator, device, ffn: str = "mlp"):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
@@ -49,34 +54,49 @@ class Block(nn.Module):
             self.ln1_post = L.param(L.init_rms(cfg.d_model, device=device))
             self.ln2_post = L.param(L.init_rms(cfg.d_model, device=device))
         self.mixer = A.GQA(cfg, dtype, **kw)
-        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, **kw)
+        self.is_moe = ffn == "moe"
+        if self.is_moe:
+            self.ffn = MoE(cfg, dtype, **kw)
+        else:
+            d_ff = cfg.moe.dense_d_ff if (cfg.moe and ffn == "dense_prefix") \
+                else cfg.d_ff
+            self.ffn = L.MLP(cfg.d_model, d_ff, cfg.act, dtype, **kw)
 
-    def _ffn(self, x, out):
+    def _ffn(self, x, out, no_drop: bool = False):
+        """Returns (x, aux loss: 0.0 for a dense ffn)."""
         cfg = self.cfg
         if cfg.post_norm:
             out = L.rms_norm(out, self.ln1_post, cfg.norm_eps)
         x = x + out
-        out = self.ffn(L.rms_norm(x, self.ln2, cfg.norm_eps))
+        h = L.rms_norm(x, self.ln2, cfg.norm_eps)
+        aux = 0.0
+        if self.is_moe:
+            out, aux = self.ffn(h, no_drop=no_drop)
+        else:
+            out = self.ffn(h)
         if cfg.post_norm:
             out = L.rms_norm(out, self.ln2_post, cfg.norm_eps)
-        return x + out
+        return x + out, aux
 
     def forward(self, x, positions, *, window: Optional[int] = None,
                 return_kv: bool = False):
-        """Returns (x, (k, v) or None)."""
+        """Returns (x, aux loss, (k, v) or None)."""
         h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
         out = self.mixer(h, positions, window=window, return_kv=return_kv)
         kv = None
         if return_kv:
             out, kv = out
-        return self._ffn(x, out), kv
+        x, aux = self._ffn(x, out)
+        return x, aux, kv
 
     def decode(self, x, cache, pos: int, *, window: Optional[int] = None):
-        """cache: {"k", "v"} (B, Smax, K, H), written in place."""
+        """cache: {"k", "v"} (B, Smax, K, H), written in place. An MoE ffn
+        runs with ``no_drop``."""
         h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
         out, kc, vc = self.mixer.decode(h, cache["k"], cache["v"], pos,
                                         window=window)
-        return self._ffn(x, out), {"k": kc, "v": vc}
+        x, _ = self._ffn(x, out, no_drop=True)
+        return x, {"k": kc, "v": vc}
 
 
 def attn_cache_shapes(cfg, batch: int, max_seq: int):
@@ -123,31 +143,47 @@ class _LM(nn.Module):
 
 
 class DecoderLM(_LM):
-    """Dense decoder (``family == "dense"``): windows, post-norms, embedding
-    scale, logit softcap and tied embeddings as the config says."""
+    """Dense and MoE decoders (``family`` ``"dense"`` or ``"moe"``, no
+    MLA): windows, post-norms, embedding scale, logit softcap and tied
+    embeddings as the config says. An MoE model runs
+    ``moe.first_dense_layers`` dense blocks (``prefix_{i}``, ffn width
+    ``moe.dense_d_ff``) before its ``stack`` of MoE blocks; its loss adds
+    the routers' auxiliary loss, summed over the layers."""
 
     def __init__(self, cfg, *, generator, device):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe") or cfg.mla is not None:
             raise NotImplementedError(
-                f"DecoderLM here takes the dense family, not {cfg.family!r}"
-                " (MoE, MLA and VLM: ROADMAP.md queue 1, item 4)")
+                f"DecoderLM here takes the dense and MoE families without "
+                f"MLA, not {cfg.family!r}"
+                + (" with MLA" if cfg.mla is not None else "")
+                + " (MLA and VLM: ROADMAP.md queue 1, item 4)")
         super().__init__(cfg, generator=generator, device=device,
                          tied=cfg.tie_embeddings)
         dt = self.dtype
-        self.stack = nn.ModuleList(
-            Block(cfg, dt, generator=generator, device=device)
-            for _ in range(cfg.num_layers))
+        kw = dict(generator=generator, device=device)
+        self.n_prefix = cfg.moe.first_dense_layers if cfg.moe else 0
+        self.n_stack = cfg.num_layers - self.n_prefix
+        for i in range(self.n_prefix):
+            setattr(self, f"prefix_{i}", Block(cfg, dt, ffn="dense_prefix",
+                                               **kw))
+        ffn = "moe" if cfg.moe else "mlp"
+        self.stack = nn.ModuleList(Block(cfg, dt, ffn=ffn, **kw)
+                                   for _ in range(self.n_stack))
 
     def _head(self):
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
+    def prefix(self):
+        return [getattr(self, f"prefix_{i}") for i in range(self.n_prefix)]
+
     def windows(self):
-        """Per-layer windows (gemma2's local/global alternation) or None."""
+        """Per-stack-layer windows (gemma2's local/global alternation,
+        counted from the first layer, prefix included) or None."""
         cfg = self.cfg
         if cfg.attn is None or cfg.attn.pattern != "local_global":
-            return [None] * cfg.num_layers
-        return [cfg.attn.window if i % 2 == 0 else A.GLOBAL_WINDOW
-                for i in range(cfg.num_layers)]
+            return [None] * self.n_stack
+        return [cfg.attn.window if (i + self.n_prefix) % 2 == 0
+                else A.GLOBAL_WINDOW for i in range(self.n_stack)]
 
     def _embed(self, tokens):
         x = F.embedding(tokens, self.embed)
@@ -156,39 +192,55 @@ class DecoderLM(_LM):
         return x
 
     def forward(self, tokens, *, collect_kv: bool = False):
-        """Final hidden states (and each layer's (k, v) if asked)."""
+        """Final hidden states and the summed aux loss (a tensor, or 0.0
+        without MoE blocks); with ``collect_kv``, also each prefix block's
+        and each stack layer's (k, v)."""
         cfg = self.cfg
         x = self._embed(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
-        kvs = []
+        aux, prefix_kv, kvs = 0.0, [], []
+        for blk in self.prefix():
+            x, a, kv = blk(x, positions, return_kv=collect_kv)
+            aux = aux + a
+            prefix_kv.append(kv)
         for blk, w in zip(self.stack, self.windows()):
-            x, kv = blk(x, positions, window=w, return_kv=collect_kv)
+            x, a, kv = blk(x, positions, window=w, return_kv=collect_kv)
+            aux = aux + a
             kvs.append(kv)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
-        return (x, kvs) if collect_kv else x
+        return (x, aux, (prefix_kv, kvs)) if collect_kv else (x, aux)
 
     def loss(self, batch):
         """Next-token loss of ``batch["tokens"]`` (B, S): the chunked
         cross-entropy (with the config's logit softcap) plus the auxiliary
         loss, 0 for the dense family. Returns (loss, metrics)."""
         tokens = batch["tokens"]
-        x = self.forward(tokens[:, :-1])
+        x, aux = self.forward(tokens[:, :-1])
         loss, metrics = L.chunked_xent(x, self._head(), tokens[:, 1:],
                                        logit_softcap=self.cfg.logit_softcap)
-        aux = torch.zeros((), dtype=f32, device=x.device)
+        if not torch.is_tensor(aux):
+            aux = torch.zeros((), dtype=f32, device=x.device)
         metrics["aux_loss"] = aux
         return loss + aux, metrics
 
     def init_cache(self, batch: int, max_seq: int):
         shapes = attn_cache_shapes(self.cfg, batch, max_seq)
         dev = self.embed.device
-        return {"stack": {k: torch.zeros((self.cfg.num_layers,) + sh,
-                                         dtype=dt, device=dev)
-                          for k, (sh, dt) in shapes.items()}}
+        cache = {"stack": {k: torch.zeros((self.n_stack,) + sh, dtype=dt,
+                                          device=dev)
+                           for k, (sh, dt) in shapes.items()}}
+        for i in range(self.n_prefix):
+            cache[f"prefix_{i}"] = {k: torch.zeros(sh, dtype=dt, device=dev)
+                                    for k, (sh, dt) in shapes.items()}
+        return cache
 
     def prefill(self, batch, max_seq: int):
-        x, kvs = self.forward(batch["tokens"], collect_kv=True)
+        x, _, (prefix_kv, kvs) = self.forward(batch["tokens"],
+                                              collect_kv=True)
         cache = {"stack": _stack_kv(kvs, max_seq)}
+        for i, (k, v) in enumerate(prefix_kv):
+            cache[f"prefix_{i}"] = {"k": pad_kv_to(k, max_seq),
+                                    "v": pad_kv_to(v, max_seq)}
         return self._logits(x[:, -1], self._head(),
                             self.cfg.logit_softcap), cache
 
@@ -196,6 +248,8 @@ class DecoderLM(_LM):
         """token: (B,); pos: the cache fill position."""
         cfg = self.cfg
         x = self._embed(token[:, None])
+        for i, blk in enumerate(self.prefix()):
+            x, _ = blk.decode(x, cache[f"prefix_{i}"], pos)
         st = cache["stack"]
         for i, (blk, w) in enumerate(zip(self.stack, self.windows())):
             x, _ = blk.decode(x, {"k": st["k"][i], "v": st["v"][i]}, pos,
@@ -261,7 +315,7 @@ class ZambaLM(_LM):
             for layer in group:
                 x, st = layer(x, want_state=collect)
                 states.append(st)
-            x, kv = self.shared(x, positions, return_kv=collect)
+            x, _, kv = self.shared(x, positions, return_kv=collect)
             g_states.append(states)
             g_kv.append(kv)
         for layer in self.trail:

@@ -65,7 +65,8 @@ def _reference_loop(jm, params, cfg, *, batch, prompt_len, gen, rounds):
     return batches, logits
 
 
-@pytest.mark.parametrize("arch", ("zamba2-7b", "qwen3-0.6b"))
+@pytest.mark.parametrize("arch", ("zamba2-7b", "qwen3-0.6b",
+                                  "deepseek-moe-16b"))
 def test_serve_matches_reference_loop(arch):
     kw = dict(batch=3, prompt_len=12, gen=4, rounds=2)
     jcfg = jget_arch(arch).smoke.replace(dtype="float32", remat="none")
