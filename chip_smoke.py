@@ -29,7 +29,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    of ``kernel.LANES`` lanes); and #2 over identical members against #1. Then flash attention (#4) at
    the serving path's prefill and decode shapes of Zamba2-7B,
    Qwen3-0.6B and DeepSeekMoE-16B (16 heads of 128; its decode in float32
-   too), a ragged length, and GQA, window and softcap cases, timed
+   too), InternVL2-2B (its 1,280 positions of vision prefix and prompt)
+   and Whisper-base (8 heads of 64: the encoder's non-causal 1,500 x
+   1,500, the decoder's non-causal cross-attention over 1,500 frames in
+   prefill and in decode with no cache length, in bf16 and float32), a
+   ragged length, and GQA, window and softcap cases, timed
    beside ``scaled_dot_product_attention``, with each call's route (and
    key splits for decode), TFLOP/s and share of the bound; at the six
    bf16 serving calls, how the route rounds P (against the reference and
@@ -96,14 +100,18 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    day steps of the same fleet, bit for bit (20 launches of #1 a day);
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
-   Qwen3-0.6B, RWKV6-7B and DeepSeekMoE-16B, 2 rounds of 4 prompts of
-   1,024 tokens and 32 decoded tokens each, with exact launch counts of #4
+   Qwen3-0.6B, RWKV6-7B, DeepSeekMoE-16B, InternVL2-2B (after its 256
+   zero vision embeddings) and Whisper-base (prompts of 128 tokens on
+   1,500 zero frames), 2 rounds of 4 prompts of 1,024 tokens and 32
+   decoded tokens each, with exact launch counts of #4
    and #5 (and their calls by route: RWKV6's 64 scans all on ``gla_vec``;
-   DeepSeekMoE's 56 prefill and 1,792 decode calls of #4), prefill and
+   DeepSeekMoE's 56 prefill and 1,792 decode calls of #4, InternVL2's 48
+   and 1,536, Whisper's 36 and 768), prefill and
    per-token times, tokens/s and peak memory; a full-width check of a
    decode step's logits against the prefill of the same tokens; one
    profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
-   busy share and #5's share of it) and one profiled decode step of each;
+   busy share and #5's share of it) and one profiled decode step of each,
+   and of InternVL2 and Whisper with #4's share;
    for DeepSeekMoE the share of routed assignments each round's prefill
    dropped at the published capacity factor of 1.25, the same prefill
    twice bit for bit, the decode check at a capacity factor of 11 (E / k
@@ -128,10 +136,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    Zamba2-7B at its published widths and 12 of 81 layers, RWKV6-7B at
    its published widths and 8 of 32 layers, and DeepSeekMoE-16B at its
    published widths and 4 of 28 layers (its aux loss finite each step),
+   InternVL2-2B and Whisper-base at full width and depth (the stub's zero
+   frames in each batch, seeded vision embeddings in place of the stub's
+   zeros, whose gradients overflow at 24 layers),
    for 2 steps each, with exact launches of #4 and #5 (RWKV6's on
    ``gla_vec``; its step's parts and a profiled step after them), and
-   #5's Function at
-   RWKV6's training shape (bonus, strict) against the plain route; and
+   #5's Function at RWKV6's training shape (bonus, strict) and #4's at
+   Whisper's cross-attention (non-causal, 255 queries on 1,500 frames)
+   against the plain route; and
    ``python -m repro_torch.launch.train
    --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
    leaf of the final checkpoint against an uninterrupted run (bit for bit,
@@ -144,7 +156,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    records within the classes of tests/test_torch_telemetry_rollout.py;
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
-   and the serving smoke configs (Zamba2, Qwen3, RWKV6 and DeepSeekMoE) in
+   and the serving smoke configs (Zamba2, Qwen3, RWKV6, DeepSeekMoE,
+   InternVL2 and Whisper) in
    float32, cuda against cpu (logits of prefill and 4 decode steps, greedy
    tokens);
 8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model
@@ -802,6 +815,10 @@ GLA_RTOL = 1e-4                       # of max|o| and of max|state|
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_ROUNDS = 4, 1024, 32, 2
 SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_GEN + 8
 DECODE_POS = SERVE_PROMPT + SERVE_GEN // 2   # a mid-generation decode step
+# Whisper-base's decoder prompts: 128 tokens, within its 448 decoder
+# positions, on the encoder's 1,500 frames
+SERVE_PROMPTS = {"whisper-base": 128}
+VISION_TOKENS, FRAMES = 256, 1500          # InternVL2-2B's, Whisper-base's
 
 
 def flash_cases():
@@ -810,13 +827,24 @@ def flash_cases():
     Qwen3-0.6B's layers (16 query heads on 8 KV heads of 128) and
     DeepSeekMoE-16B's layers (16 heads of 128, MHA), a ragged length,
     float32, and Gemma2-9B's widths (16 on 8 heads of 256) with its
-    softcap of 50 and a 512-key window. The decode shapes run in float32
+    softcap of 50 and a 512-key window; InternVL2-2B's prefill over its
+    256 vision positions and 1,024 prompt tokens and its last decode step
+    (16 on 8 heads of 128); Whisper-base's calls (8 heads of 64): the
+    encoder's non-causal self-attention over 1,500 frames, the decoder's
+    non-causal cross-attention of 128 prompt positions and of one token
+    over them (no cache length), the two cross calls in float32 too. The
+    decode shapes run in float32
     too: there the 2e-5 limit is far below the ~1e-3 that one key too many
     or too few (an off-by-one ``length`` or ``q_offset``) moves an output
     row by, which bfloat16's 2e-2 limit would let through."""
     B, P, M, pos = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, DECODE_POS
     bf, f = torch.bfloat16, torch.float32
     dec = dict(causal=True, q_offset=pos, length=pos + 1)
+    V, E, W = VISION_TOKENS, FRAMES, SERVE_PROMPTS["whisper-base"]
+    # InternVL2's last decode step: 1,312 keys of its 1,320-slot cache
+    last = dict(causal=True, q_offset=V + P + SERVE_GEN - 1,
+                length=V + P + SERVE_GEN)
+    cross = dict(causal=False)
     return [
         ("zamba2 prefill", B, P, P, 32, 32, 112, bf, dict(causal=True)),
         ("zamba2 decode", B, 1, M, 32, 32, 112, bf, dec),
@@ -834,6 +862,14 @@ def flash_cases():
         ("deepseek-moe prefill", B, P, P, 16, 16, 128, bf, dict(causal=True)),
         ("deepseek-moe decode", B, 1, M, 16, 16, 128, bf, dec),
         ("deepseek-moe decode float32", B, 1, M, 16, 16, 128, f, dec),
+        ("internvl2 prefill (GQA)", B, V + P, V + P, 16, 8, 128, bf,
+         dict(causal=True)),
+        ("internvl2 decode (GQA)", B, 1, V + M, 16, 8, 128, bf, last),
+        ("whisper encoder", B, E, E, 8, 8, 64, bf, cross),
+        ("whisper cross prefill", B, W, E, 8, 8, 64, bf, cross),
+        ("whisper cross decode", B, 1, E, 8, 8, 64, bf, cross),
+        ("whisper cross prefill float32", B, W, E, 8, 8, 64, f, cross),
+        ("whisper cross decode float32", B, 1, E, 8, 8, 64, f, cross),
     ]
 
 
@@ -2303,7 +2339,8 @@ def phase_fleet():
 
 # ------------------------------------------------- phase 6: serving path
 
-SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b")
+SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b",
+               "internvl2-2b", "whisper-base")
 CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
 FLOAT32_CONSISTENCY_TOL = 1e-4        # the same in float32 (serving's golden)
 
@@ -2318,12 +2355,34 @@ def no_drop_capacity(m):
     return float(math.ceil(m.num_experts / m.top_k))
 
 
+def serve_shape(arch, cfg):
+    """(prompt tokens, the prompt's first position, cache slots) of the
+    serving path's calls: a VLM's prompt follows its vision positions,
+    Whisper's prompts are SERVE_PROMPTS' 128 tokens, and ``serve`` sizes
+    the cache to the prompt's end plus SERVE_GEN + 8."""
+    from repro_torch.models.model import prompt_start
+    prompt = SERVE_PROMPTS.get(arch, SERVE_PROMPT)
+    start = prompt_start(cfg)
+    return prompt, start, start + prompt + SERVE_GEN + 8
+
+
+def serve_inputs(cfg, toks):
+    """A prefill's batch: the tokens and the stub frontends' zeros."""
+    from repro_torch.models.model import stub_inputs
+    return {"tokens": toks, **stub_inputs(cfg, toks.shape[0], toks.device)}
+
+
 def launches_per_call(cfg):
     """Launches of (#4, #5) in one prefill and in one decoded token: Zamba2
     runs the scan once a Mamba2 layer in a prefill and its shared block
     once a group in both; RWKV6 the scan once a layer in a prefill and
-    nothing in decode (its step is plain); a dense or MoE model runs
+    nothing in decode (its step is plain); an encoder-decoder attention
+    once an encoder layer and twice a decoder layer (self and cross) in a
+    prefill, twice a decoder layer in decode; a dense, MoE or VLM model
     attention once a layer in both."""
+    if cfg.family == "encdec":
+        return (cfg.encoder_layers + 2 * cfg.num_layers, 0), \
+            (2 * cfg.num_layers, 0)
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
         return (groups, cfg.num_layers), (groups, 0)
@@ -2340,10 +2399,11 @@ def gla_route_of(cfg):
 
 
 def phase_serve():
-    """Carbon-aware serving at full published width on the card: the four
+    """Carbon-aware serving at full published width on the card: the six
     models, exact launch counts (#4's and #5's by route too), a
     decode-vs-prefill check, a profiled prefill and decode step of Zamba2,
-    RWKV6 and DeepSeekMoE, and DeepSeekMoE's routing checks
+    RWKV6, DeepSeekMoE, InternVL2 and Whisper, and DeepSeekMoE's routing
+    checks
     (``moe_serve_checks``). Returns the launches of #4 and #5, their calls
     by route, #5's calls by model and route, and #4's launches by
     model."""
@@ -2366,9 +2426,10 @@ def phase_serve():
               f"{time.perf_counter() - t0:.2f} s; weights "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+        prompt = serve_shape(arch, cfg)[0]
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        res = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        res = serve(arch, batch=SERVE_BATCH, prompt_len=prompt,
                     gen=SERVE_GEN, rounds=SERVE_ROUNDS, carbon_aware=True,
                     device="cuda", model=model)
         counts = read_counts()
@@ -2429,6 +2490,9 @@ def phase_serve():
         if cfg.family in ("hybrid", "ssm"):
             profile_prefill(arch, model, res.prefill_ms)
             profile_decode(arch, model)
+        elif cfg.family in ("vlm", "encdec"):
+            profile_prefill(arch, model, res.prefill_ms, which="#4")
+            profile_decode(arch, model, which="#4")
         del model
         torch.cuda.empty_cache()
         if cfg.moe:
@@ -2436,24 +2500,29 @@ def phase_serve():
     return totals, routes, gla_routes, gla_by_model, fa_by_model
 
 
-def decode_consistency(arch, cfg, model, B=2, T=SERVE_PROMPT,
-                       tol=CONSISTENCY_TOL):
+def decode_consistency(arch, cfg, model, B=2, tol=CONSISTENCY_TOL):
     """The logits of a decode step after prefilling T - 1 tokens against
-    the prefill of all T tokens (no plain path runs), in the model's type,
-    held within ``tol`` of max|logit| (``tol=None``: printed, not held).
-    Returns the gap."""
+    the prefill of all T tokens (T the arch's serving prompt; a VLM's
+    vision prefix and an encoder-decoder's frames, the stubs' zeros, in
+    both prefills, the decode position after the vision prefix; no plain
+    path runs), in the model's type, held within ``tol`` of max|logit|
+    (``tol=None``: printed, not held). Returns the gap."""
+    T, start, _ = serve_shape(arch, cfg)
     g = torch.Generator(device="cuda").manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
                          device="cuda")
     with torch.inference_mode():
-        _, cache = model.prefill({"tokens": toks[:, :-1]}, T + 8)
-        dec, _ = model.decode_step(cache, toks[:, -1], T - 1)
-        full, _ = model.prefill({"tokens": toks}, T + 8)
+        _, cache = model.prefill(serve_inputs(cfg, toks[:, :-1]),
+                                 start + T + 8)
+        dec, _ = model.decode_step(cache, toks[:, -1], start + T - 1)
+        full, _ = model.prefill(serve_inputs(cfg, toks), start + T + 8)
     if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
         raise AssertionError(f"{arch}: non-finite logits")
     gap = (dec - full).abs().max().item() / full.abs().max().item()
-    print(f"[serve] {arch}: decode step after a {T - 1}-token prefill vs "
-          f"the {T}-token prefill ({cfg.dtype}): max|logit gap| / max|logit| "
+    print(f"[serve] {arch}: decode step at position {start + T - 1} after a "
+          f"{T - 1}-token prefill vs the {T}-token prefill ({cfg.dtype}"
+          + (f", {start} vision positions first" if start else "")
+          + "): max|logit gap| / max|logit| "
           f"= {gap:.3e} ("
           + ("not held here" if tol is None else f"limit {tol:g}")
           + f"); logits {tuple(full.shape)}, finite", flush=True)
@@ -2485,18 +2554,20 @@ def profile_prefill(arch, model, prefill_ms, B=SERVE_BATCH, which="#5"):
     one: the device's busy share and kernel ``which``'s share of it (table
     in chiprun_out/profile_serve_prefill.txt for Zamba2-7B,
     profile_serve_prefill_<arch>.txt for the others)."""
-    toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
+    prompt, _, max_seq = serve_shape(arch, model.cfg)
+    toks = torch.randint(1, model.cfg.vocab_size, (B, prompt),
                          device="cuda")
+    inputs = serve_inputs(model.cfg, toks)
 
     def prefill():
         with torch.inference_mode():
-            model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
+            model.prefill(inputs, max_seq)
 
     prefill()
     fname = "profile_serve_prefill.txt" if arch == "zamba2-7b" else \
         f"profile_serve_prefill_{arch}.txt"
     wall_ms, busy_ms, ours, _ = profile_call(
-        prefill, fname, f"one {arch} prefill ({B} x {SERVE_PROMPT} tokens)")
+        prefill, fname, f"one {arch} prefill ({B} x {prompt} tokens)")
     kernel_share(arch, "prefill", which, ours, busy_ms, wall_ms)
     print(f" (serve's unprofiled prefills: "
           f"{', '.join(f'{x:.1f}' for x in prefill_ms)} ms)", flush=True)
@@ -2507,22 +2578,23 @@ def profile_decode(arch, model, B=SERVE_BATCH, which=None):
     ``which``'s share of it if given (table in
     chiprun_out/profile_serve_decode.txt for Zamba2-7B,
     profile_serve_decode_<arch>.txt for the others)."""
-    toks = torch.randint(1, model.cfg.vocab_size, (B, SERVE_PROMPT),
+    prompt, start, max_seq = serve_shape(arch, model.cfg)
+    toks = torch.randint(1, model.cfg.vocab_size, (B, prompt),
                          device="cuda")
     with torch.inference_mode():
-        _, cache = model.prefill({"tokens": toks}, SERVE_MAX_SEQ)
-        tok = toks[:, -1]
-        model.decode_step(cache, tok, SERVE_PROMPT)    # warm
+        _, cache = model.prefill(serve_inputs(model.cfg, toks), max_seq)
+        tok, pos = toks[:, -1], start + prompt
+        model.decode_step(cache, tok, pos)    # warm
 
         def step():
             with torch.inference_mode():
-                model.decode_step(cache, tok, SERVE_PROMPT + 1)
+                model.decode_step(cache, tok, pos + 1)
 
         fname = "profile_serve_decode.txt" if arch == "zamba2-7b" else \
             f"profile_serve_decode_{arch}.txt"
         wall_ms, busy_ms, ours, _ = profile_call(
             step, fname, f"one {arch} decode step (batch {B}, cache "
-            f"{SERVE_MAX_SEQ})")
+            f"{max_seq})")
     if which:
         kernel_share(arch, "decode step", which, ours, busy_ms, wall_ms)
         print(flush=True)
@@ -2693,6 +2765,9 @@ RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 2
 # DeepSeekMoE-16B at its published widths, cut to 4 of 28 layers (its dense
 # first layer and 3 MoE layers; ~2.3 B parameters, about RWKV6's at 8)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2
+# InternVL2-2B (~1.9 B parameters; 256 vision positions before each
+# sequence) and Whisper-base (~71 M; 1,500 frames) at full width and depth
+STUB_TRAIN_STEPS = 2
 GRAD_TOL = 2e-2                       # Function vs plain gradients, x max
 RESUME_TOL = 1e-5                     # tests/test_checkpoint_data.py:69
 BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
@@ -2700,9 +2775,13 @@ BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
 
 def train_counts(cfg, steps):
     """Launches of (#4, #5) in ``steps`` train steps: the forward of every
-    attention layer (Zamba2's shared block once a group; a dense or MoE
-    model's every layer) and every Mamba2 or RWKV6 layer; the backward
-    recomputes the plain versions and launches none."""
+    attention layer (Zamba2's shared block once a group; a dense, MoE or
+    VLM model's every layer; an encoder-decoder's encoder layers and its
+    decoder layers' self and cross attention) and every Mamba2 or RWKV6
+    layer; the backward recomputes the plain versions and launches
+    none."""
+    if cfg.family == "encdec":
+        return steps * (cfg.encoder_layers + 2 * cfg.num_layers), 0
     if cfg.family == "hybrid":
         return steps * (cfg.num_layers // cfg.attn_every), \
             steps * cfg.num_layers
@@ -2772,6 +2851,21 @@ def run_train(label, cfg, steps, profile=None, **kw):
     print(f"[train] {label}: {n / 1e9:.3f} B parameters ({cfg.dtype}, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}), built on the "
           f"card from seed 0 in {time.perf_counter() - t0:.2f} s", flush=True)
+    if cfg.family == "vlm":
+        # the stub's zero vision embeddings keep every vision position's
+        # residual stream at zero, where rms_norm's gradient is 1 /
+        # sqrt(eps) at each norm: past ~17 layers the gradients overflow
+        # to NaN, in both packages (ROADMAP.md §3); a frontend's output is
+        # not zero, so the run feeds seeded embeddings at the token
+        # embeddings' scale in their place
+        g = torch.Generator(device="cuda").manual_seed(0)
+        ve = (cfg.d_model ** -0.5 * torch.randn(
+            (TRAIN_BATCH, cfg.vision_tokens, cfg.d_model), generator=g,
+            device="cuda")).to(model.dtype)
+        vlm_loss = model.loss
+        model.loss = lambda batch: vlm_loss({**batch, "vision_embeds": ve})
+        print(f"[train] {label}: vision embeddings seeded (normal x "
+              f"d_model^-0.5) in place of the stub's zeros", flush=True)
     auxes = []
     if cfg.moe:
         loss_of = model.loss
@@ -2888,6 +2982,7 @@ def phase_function_grads():
     from repro_torch.kernels.linear_scan import ref as gla_ref
     g = torch.Generator(device="cuda").manual_seed(11)
     bf = torch.bfloat16
+    cross_grads(g)
 
     def leaf(*shape, dt=bf, scale=1.0):
         return (scale * torch.randn(shape, generator=g, device="cuda")).to(
@@ -2937,6 +3032,33 @@ def phase_function_grads():
                                          ropts),
         lambda *x: gla_ref.gla_chunked(*x, bonus=u, **ropts),
         rwkv_inputs, (r, kk, vv, w_raw, u))
+
+
+def cross_grads(g):
+    """#4's autograd Function at Whisper-base's cross-attention in a train
+    step (8 x 255 decoder positions on 1,500 frames, 8 heads of 64,
+    non-causal: the gradients reach the encoder through k and v) against
+    the plain route, bf16."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ - 1
+    q, k, v = leaf(B, S, 8, 64), leaf(B, FRAMES, 8, 64), \
+        leaf(B, FRAMES, 8, 64)
+    kw = dict(causal=False, window=None, softcap=None, q_offset=0,
+              length=None, scale=None)
+    function_grads(
+        f"#4 FlashAttention, Whisper-base cross-attention ({B} x {S} on "
+        f"{FRAMES} frames, 8 heads of 64, non-causal)",
+        lambda *x: (fa_ops.FlashAttention.apply(
+            *x, fa_kernel.flash_attention_cuda, kw),),
+        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
+        lambda: (q, k, v), (q, k, v))
 
 
 def kill_and_resume():
@@ -2994,6 +3116,22 @@ def kill_and_resume():
         raise AssertionError(f"[train] resumed run off by {gap:.3e}")
 
 
+def train_stub_families():
+    """InternVL2-2B and Whisper-base at full width and depth, for
+    STUB_TRAIN_STEPS steps each (``run_train``: Whisper's batches carry
+    the stub's zero frames, InternVL2's seeded vision embeddings in place
+    of the stub's zeros). Returns each one's launches of #4 and #5."""
+    from repro_torch.configs import get_arch
+    launched = {}
+    for arch in ("internvl2-2b", "whisper-base"):
+        cfg = get_arch(arch).config.replace(remat="none")
+        label = f"{arch} (all {cfg.num_layers} layers" + (
+            f", {cfg.encoder_layers} encoder layers"
+            if cfg.encoder_layers else "") + ")"
+        launched[arch] = run_train(label, cfg, STUB_TRAIN_STEPS)[1]
+    return launched
+
+
 def phase_train():
     """The trainer on the card: Qwen3-0.6B at full published width in bf16
     for TRAIN_STEPS steps with the carbon gate on (each hour's budget
@@ -3001,9 +3139,9 @@ def phase_train():
     against the plain route; Zamba2-7B and RWKV6-7B at their published
     widths and ZAMBA_TRAIN_LAYERS / RWKV_TRAIN_LAYERS layers; the
     kill-and-resume replay; DeepSeekMoE-16B at its published widths and
-    MOE_TRAIN_LAYERS layers. Returns the launches of #4 and #5 on the
-    training runs, #5's calls by model and route, and #4's launches by
-    model."""
+    MOE_TRAIN_LAYERS layers; InternVL2-2B and Whisper-base at full width
+    and depth. Returns the launches of #4 and #5 on the training runs,
+    #5's calls by model and route, and #4's launches by model."""
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen3-0.6b").config.replace(remat="none")
     res, launched, _ = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
@@ -3034,11 +3172,13 @@ def phase_train():
     _, mlaunched, _ = run_train(
         f"deepseek-moe-16b ({MOE_TRAIN_LAYERS} of 28 layers)", mcfg,
         MOE_TRAIN_STEPS)
-    totals = [a + b + c + d for a, b, c, d in
-              zip(totals, zlaunched, rlaunched, mlaunched)]
+    stubbed = train_stub_families()
+    totals = [sum(x) for x in zip(totals, zlaunched, rlaunched, mlaunched,
+                                  *stubbed.values())]
     kill_and_resume()
     fa_by_model = {"qwen3-0.6b": launched[0], "zamba2-7b": zlaunched[0],
-                   "deepseek-moe-16b": mlaunched[0]}
+                   "deepseek-moe-16b": mlaunched[0],
+                   **{a: n[0] for a, n in stubbed.items()}}
     return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model
 
 

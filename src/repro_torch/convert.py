@@ -105,7 +105,8 @@ ENSEMBLE = ("eta_ens", "pow_nom_ens", "risk_beta")
 
 
 # pytree keys whose leaves stack layers on leading axes, and how many
-STACKED = {"stack": 1, "groups": 2, "trail": 1}
+STACKED = {"stack": 1, "groups": 2, "trail": 1, "enc_stack": 1,
+           "dec_stack": 1}
 
 
 def _torch_dtype(a):
@@ -118,7 +119,8 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
     """The JAX model's parameters (a nested dict of numpy arrays; bfloat16
     leaves as ``ml_dtypes`` arrays) -> the port's ``state_dict`` for
     ``build_model(cfg)``: layer ``i`` of a stacked subtree (``stack``,
-    ``trail``; ``groups`` with two axes, group and layer) becomes module
+    ``trail``, an encoder-decoder's ``enc_stack`` and ``dec_stack``;
+    ``groups`` with two axes, group and layer) becomes module
     ``<key>.i`` (``groups.g.i``), an unstacked subtree (an MoE model's
     ``prefix_{i}``) module ``<key>``, and each leaf keeps its type. Raises
     if a stacked subtree does not hold ``cfg``'s layers (an MoE model's
@@ -127,7 +129,9 @@ def model_params_from_numpy(cfg, tree, device=None) -> dict:
     n_prefix = cfg.moe.first_dense_layers if cfg.moe else 0
     layers = {"stack": (cfg.num_layers - n_prefix,),
               "groups": (cfg.num_layers // m, m),
-              "trail": (cfg.num_layers % m,)}
+              "trail": (cfg.num_layers % m,),
+              "enc_stack": (cfg.encoder_layers,),
+              "dec_stack": (cfg.num_layers,)}
     state = {}
 
     def leaves(x, path):

@@ -11,6 +11,13 @@ toward clean hours; latency-critical serving is never gated.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --smoke --device cpu --carbon-aware
 
+A VLM's prompts come with zero ``vision_embeds`` and an encoder-decoder's
+with zero ``frames`` (``models.stub_inputs``, the reference's stub
+frontends); a VLM decodes from position vision_tokens + prompt_len. Its
+cache holds vision_tokens + prompt_len + gen + 8 positions: the
+reference's loop sizes it prompt_len + gen + 8 and so cannot serve
+InternVL2-2B's 256 vision tokens (ROADMAP.md §3).
+
 Runs on ``cuda`` unless ``--device cpu`` is given (and raises without a
 card). ``serve(...)`` is the same loop as a function: it returns the
 tokens, the admitted batch sizes and the timings.
@@ -28,6 +35,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs import get_arch
 from repro_torch.launch.train import CarbonGate
 from repro_torch.models import build_model
+from repro_torch.models.model import prompt_start, stub_inputs
 from repro_torch.training import make_prefill_step, make_serve_step
 
 
@@ -57,7 +65,9 @@ def serve(arch: str = "qwen3-0.6b", *, smoke: bool = False, batch: int = 4,
     cfg = (a.smoke if smoke else a.config).replace(remat="none")
     if model is None:
         model = build_model(cfg, dev, seed=seed)
-    max_seq = prompt_len + gen + 8
+    cfg = model.cfg
+    start = prompt_start(cfg)
+    max_seq = start + prompt_len + gen + 8
     prefill = make_prefill_step(model, max_seq)
     decode = make_serve_step(model)
     gate = CarbonGate() if carbon_aware else None
@@ -82,14 +92,15 @@ def serve(arch: str = "qwen3-0.6b", *, smoke: bool = False, batch: int = 4,
             bsz = batch
         toks = rng.randint(1, cfg.vocab_size, size=(bsz, prompt_len))
         inputs = {"tokens": torch.tensor(toks, dtype=torch.int64,
-                                         device=dev)}
+                                         device=dev),
+                  **stub_inputs(cfg, bsz, dev)}
         t0 = now()
         logits, cache = prefill(inputs)
         tok = torch.argmax(logits, -1)
         t1 = now()
         out, kept = [tok], [logits]
         for i in range(gen):
-            logits, cache = decode(cache, tok, prompt_len + i)
+            logits, cache = decode(cache, tok, start + prompt_len + i)
             tok = torch.argmax(logits, -1)
             out.append(tok)
             kept.append(logits)

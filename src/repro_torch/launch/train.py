@@ -33,6 +33,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import carbon, prng
 from repro_torch.data import DataConfig, batch_at
 from repro_torch.models import build_model
+from repro_torch.models.model import stub_inputs
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import init_train_state, make_train_step
 
@@ -80,8 +81,10 @@ def train(arch: str = "qwen3-0.6b", *, smoke: bool = False,
     batch), step)`` with the reference trainer's AdamW (warmup 20, decay
     over max(steps, 100)), resuming from ``ckpt_dir``'s last committed
     checkpoint. ``model`` (already on ``device``) replaces the one built
-    from ``arch`` with weights from seed 0. ``kill_at_step`` ends the
-    process with code 42 right after that step (fault injection)."""
+    from ``arch`` with weights from seed 0. A VLM's and an
+    encoder-decoder's batches get their stub frontends' zeros
+    (``models.stub_inputs``). ``kill_at_step`` ends the process with code
+    42 right after that step (fault injection)."""
     dev = device_mod.resolve(device)
     if model is None:
         a = get_arch(arch)
@@ -132,7 +135,8 @@ def train(arch: str = "qwen3-0.6b", *, smoke: bool = False,
                 break
             tokens = batch_at(dcfg, step)["tokens"]
             inputs = {"tokens": torch.tensor(tokens, dtype=torch.int64,
-                                             device=dev)}
+                                             device=dev),
+                      **stub_inputs(cfg, batch, dev)}
             ts = now()
             state, metrics = step_fn(state, inputs)
             step_ms.append(1e3 * (now() - ts))

@@ -1,7 +1,6 @@
 """Shared model building blocks: initialisers, norms, RoPE, soft-capping,
-MLPs and the chunked vocabulary loss. The counterpart of
-``repro.models.layers`` (``sinusoidal_positions`` waits for the
-encoder-decoder model: ROADMAP.md queue 1, item 4).
+sinusoidal positions, MLPs and the chunked vocabulary loss. The
+counterpart of ``repro.models.layers``.
 
 Initialisers draw from an explicit ``torch.Generator`` on the device the
 weights live on. They follow the reference's distributions (truncated
@@ -109,6 +108,16 @@ def rope(x, positions, theta: float):
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d: int, base: float = 10_000.0):
+    """Whisper-style sinusoidal embeddings in float32: positions (S,) ->
+    (S, d), the sines of the d // 2 frequencies, then their cosines."""
+    half = d // 2
+    freqs = torch.pow(float(base), -torch.arange(
+        half, dtype=f32, device=positions.device) / max(half - 1, 1))
+    ang = positions.to(f32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x, cap: Optional[float]):

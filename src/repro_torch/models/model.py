@@ -1,19 +1,25 @@
 """``build_model``: the counterpart of ``repro.models.model.build_model``
-for the families ported so far (dense, MoE without MLA, hybrid and RWKV6's
-ssm). The reference's ``param_specs``, ``cache_specs``, ``batch_specs``
-and ``input_specs`` are ``jax.eval_shape`` dry-run helpers and have no
-counterpart (ROADMAP.md: out of scope on one card)."""
+for the families ported so far (dense, MoE and VLM without MLA, hybrid,
+RWKV6's ssm and the encoder-decoder). The reference's ``param_specs``,
+``cache_specs``, ``batch_specs`` and ``input_specs`` are
+``jax.eval_shape`` dry-run helpers and have no counterpart (ROADMAP.md:
+out of scope on one card).
+
+``stub_inputs`` and ``prompt_start`` are what the reference's launchers
+feed the two families with a stub frontend and where their decode
+positions start."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.models import layers as L
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM, RWKVLM, ZambaLM
 
-_LATER = ("ROADMAP.md queue 1, item 4: the VLM, MLA and encoder-decoder "
-          "models are ported one a PR")
-_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "hybrid": ZambaLM,
-           "ssm": RWKVLM}
+_LATER = "ROADMAP.md queue 1, item 4: MLA is the family left to port"
+_MODELS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+           "hybrid": ZambaLM, "ssm": RWKVLM, "encdec": EncDecLM}
 
 
 def build_model(cfg, device=None, *, seed: int = 0, generator=None):
@@ -35,3 +41,25 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     return _MODELS[cfg.family](cfg, generator=generator, device=dev)
+
+
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The stub frontends' outputs that the reference's launchers add to a
+    batch of ``batch`` prompts (``repro.launch.serve``: 57-62,
+    ``repro.launch.train``: 139-146): a VLM's ``vision_embeds`` (batch,
+    vision_tokens, d_model) and an encoder-decoder's ``frames`` (batch,
+    encoder_seq, d_model), zeros in the config's type; nothing for the
+    other families."""
+    shape = {"vlm": ("vision_embeds", cfg.vision_tokens),
+             "encdec": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.zeros((batch, n, cfg.d_model),
+                              dtype=L.torch_dtype(cfg.dtype), device=device)}
+
+
+def prompt_start(cfg) -> int:
+    """The position of a prompt's first token: after a VLM's vision
+    tokens, 0 otherwise."""
+    return cfg.vision_tokens if cfg.family == "vlm" else 0

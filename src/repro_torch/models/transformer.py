@@ -2,7 +2,7 @@
 ``ZambaLM`` (Mamba2 backbone plus one weight-shared attention block) and
 the attention-free ``RWKVLM`` (RWKV6). The counterpart of
 ``repro.models.transformer``'s blocks and those models, without their MLA
-and VLM branches (ROADMAP.md queue 1, item 4).
+branch (ROADMAP.md queue 1, item 4).
 
 The reference stacks per-layer parameters for ``lax.scan``; here each
 layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
@@ -18,9 +18,9 @@ Every model exposes
     decode_step(cache, token, pos) -> (logits, cache)
 
 with ``batch = {"tokens": (B, S) int64}`` (``loss`` predicts tokens 1..S-1
-from 0..S-2), ``token`` (B,) and ``pos`` a
-Python int (the cache fill position). Caches keep the reference's stacked
-layout and are written in place by ``decode_step``.
+from 0..S-2; a VLM's batch also holds ``vision_embeds``), ``token`` (B,)
+and ``pos`` a Python int (the cache fill position). Caches keep the
+reference's stacked layout and are written in place by ``decode_step``.
 """
 from __future__ import annotations
 
@@ -108,7 +108,12 @@ def attn_cache_shapes(cfg, batch: int, max_seq: int):
 
 
 def pad_kv_to(x, max_seq: int, axis: int = 1):
-    """``_pad_kv_to``: zero-pad the sequence axis to ``max_seq``."""
+    """``_pad_kv_to``: zero-pad the sequence axis to ``max_seq``. Raises
+    ``ValueError`` if the axis is longer (the reference's ``jnp.pad``
+    refuses a negative width; ``F.pad`` would crop)."""
+    if x.shape[axis] > max_seq:
+        raise ValueError(f"a cache of {x.shape[axis]} positions does not "
+                         f"fit max_seq {max_seq}")
     pad = [0, 0] * (x.dim() - axis - 1) + [0, max_seq - x.shape[axis]]
     return F.pad(x, pad)
 
@@ -143,20 +148,23 @@ class _LM(nn.Module):
 
 
 class DecoderLM(_LM):
-    """Dense and MoE decoders (``family`` ``"dense"`` or ``"moe"``, no
-    MLA): windows, post-norms, embedding scale, logit softcap and tied
-    embeddings as the config says. An MoE model runs
+    """Dense, MoE and VLM decoders (``family`` ``"dense"``, ``"moe"`` or
+    ``"vlm"``, no MLA): windows, post-norms, embedding scale, logit
+    softcap and tied embeddings as the config says. An MoE model runs
     ``moe.first_dense_layers`` dense blocks (``prefix_{i}``, ffn width
     ``moe.dense_d_ff``) before its ``stack`` of MoE blocks; its loss adds
-    the routers' auxiliary loss, summed over the layers."""
+    the routers' auxiliary loss, summed over the layers. A VLM (the dense
+    tree) puts ``batch["vision_embeds"]`` (B, vision_tokens, d_model),
+    the stub frontend's output, in front of the tokens in ``forward``,
+    ``prefill`` and ``loss``; its decode positions count them."""
 
     def __init__(self, cfg, *, generator, device):
-        if cfg.family not in ("dense", "moe") or cfg.mla is not None:
+        if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
             raise NotImplementedError(
-                f"DecoderLM here takes the dense and MoE families without "
-                f"MLA, not {cfg.family!r}"
+                f"DecoderLM here takes the dense, MoE and VLM families "
+                f"without MLA, not {cfg.family!r}"
                 + (" with MLA" if cfg.mla is not None else "")
-                + " (MLA and VLM: ROADMAP.md queue 1, item 4)")
+                + " (MLA: ROADMAP.md queue 1, item 4)")
         super().__init__(cfg, generator=generator, device=device,
                          tied=cfg.tie_embeddings)
         dt = self.dtype
@@ -185,18 +193,22 @@ class DecoderLM(_LM):
         return [cfg.attn.window if (i + self.n_prefix) % 2 == 0
                 else A.GLOBAL_WINDOW for i in range(self.n_stack)]
 
-    def _embed(self, tokens):
+    def _embed(self, tokens, vision_embeds=None):
         x = F.embedding(tokens, self.embed)
         if self.cfg.embed_scale:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
         return x
 
-    def forward(self, tokens, *, collect_kv: bool = False):
-        """Final hidden states and the summed aux loss (a tensor, or 0.0
-        without MoE blocks); with ``collect_kv``, also each prefix block's
-        and each stack layer's (k, v)."""
+    def forward(self, tokens, vision_embeds=None, *,
+                collect_kv: bool = False):
+        """Final hidden states (a VLM's vision positions first) and the
+        summed aux loss (a tensor, or 0.0 without MoE blocks); with
+        ``collect_kv``, also each prefix block's and each stack layer's
+        (k, v)."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, vision_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
         aux, prefix_kv, kvs = 0.0, [], []
         for blk in self.prefix():
@@ -213,11 +225,20 @@ class DecoderLM(_LM):
     def loss(self, batch):
         """Next-token loss of ``batch["tokens"]`` (B, S): the chunked
         cross-entropy (with the config's logit softcap) plus the auxiliary
-        loss, 0 for the dense family. Returns (loss, metrics)."""
+        loss, 0 for the dense family. A VLM scores the hidden states at
+        vision_tokens - 1 ... vision_tokens + S - 3 against tokens 1..S-1,
+        as the reference slices them: position vision_tokens - 1 + j has
+        seen tokens 0..j-1 and is scored against token j + 1 (ROADMAP.md
+        §3 pins this). Returns (loss, metrics)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        x, aux = self.forward(tokens[:, :-1])
-        loss, metrics = L.chunked_xent(x, self._head(), tokens[:, 1:],
-                                       logit_softcap=self.cfg.logit_softcap)
+        labels = tokens[:, 1:]
+        x, aux = self.forward(tokens[:, :-1], batch.get("vision_embeds"))
+        if cfg.family == "vlm":
+            tv = cfg.vision_tokens
+            x = x[:, tv - 1:tv - 1 + labels.shape[1]]
+        loss, metrics = L.chunked_xent(x, self._head(), labels,
+                                       logit_softcap=cfg.logit_softcap)
         if not torch.is_tensor(aux):
             aux = torch.zeros((), dtype=f32, device=x.device)
         metrics["aux_loss"] = aux
@@ -235,8 +256,8 @@ class DecoderLM(_LM):
         return cache
 
     def prefill(self, batch, max_seq: int):
-        x, _, (prefix_kv, kvs) = self.forward(batch["tokens"],
-                                              collect_kv=True)
+        x, _, (prefix_kv, kvs) = self.forward(
+            batch["tokens"], batch.get("vision_embeds"), collect_kv=True)
         cache = {"stack": _stack_kv(kvs, max_seq)}
         for i, (k, v) in enumerate(prefix_kv):
             cache[f"prefix_{i}"] = {"k": pad_kv_to(k, max_seq),

@@ -528,6 +528,14 @@ FLASH_CASES = [
     (1, 5, 200, 8, 2, 64, True, None, None, 150, 155, torch.float32),
     (2, 1, 100, 4, 2, 256, True, None, 30.0, 80, 81, torch.bfloat16),
     (2, 1, 70, 4, 2, 33, True, None, None, 60, 61, torch.bfloat16),
+    # non-causal with Sq != Sk on each route (an encoder-decoder's
+    # cross-attention: Whisper-base's 8 heads of 64 over 1,500 frames), a
+    # decode with no length, and a non-causal decode with length < Sk
+    (2, 128, 1500, 8, 8, 64, False, None, None, 0, None, torch.bfloat16),
+    (2, 40, 300, 4, 4, 64, False, None, None, 0, None, torch.float32),
+    (2, 1, 1500, 8, 8, 64, False, None, None, 0, None, torch.bfloat16),
+    (2, 1, 1500, 8, 8, 64, False, None, None, 0, None, torch.float32),
+    (2, 1, 300, 8, 4, 64, False, None, None, 0, 170, torch.float32),
 ]
 
 

@@ -194,8 +194,7 @@ def test_bfloat16_qwen3_matches_reference():
     _prefill_and_decode("qwen3-0.6b", "bfloat16", rtol=2e-2)
 
 
-@pytest.mark.parametrize("name", ("deepseek-v2-236b", "internvl2-2b",
-                                  "whisper-base"))
+@pytest.mark.parametrize("name", ("deepseek-v2-236b",))
 def test_build_model_refuses_unported_families(name):
     cfg = get_arch(name).smoke
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

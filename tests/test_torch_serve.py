@@ -41,7 +41,10 @@ def test_carbon_gate_matches_reference(seed):
 
 def _reference_loop(jm, params, cfg, *, batch, prompt_len, gen, rounds):
     """``repro.launch.serve.main``'s loop with the given weights: admitted
-    batch sizes, and per round the logits of every call."""
+    batch sizes, and per round the logits of every call. A VLM's batch
+    gets zero ``vision_embeds`` and decodes from prompt_len +
+    vision_tokens, an encoder-decoder's gets zero ``frames``
+    (``serve.py:57-66``)."""
     gate = JCarbonGate()
     rng = np.random.RandomState(0)
     max_seq = prompt_len + gen + 8
@@ -52,12 +55,21 @@ def _reference_loop(jm, params, cfg, *, batch, prompt_len, gen, rounds):
         bsz = max(1, int(round(batch * min(gate.capacity[r % 24], 1.5))))
         toks = rng.randint(1, cfg.vocab_size,
                            size=(bsz, prompt_len)).astype(np.int32)
-        lg, cache = prefill(params, {"tokens": jnp.asarray(toks)})
+        inputs = {"tokens": jnp.asarray(toks)}
+        if cfg.family == "vlm":
+            inputs["vision_embeds"] = jnp.zeros(
+                (bsz, cfg.vision_tokens, cfg.d_model), jnp.dtype(cfg.dtype))
+        if cfg.family == "encdec":
+            inputs["frames"] = jnp.zeros(
+                (bsz, cfg.encoder_seq, cfg.d_model), jnp.dtype(cfg.dtype))
+        lg, cache = prefill(params, inputs)
         tok = jnp.argmax(lg, -1).astype(jnp.int32)
         kept = [np.asarray(lg)]
+        pos0 = prompt_len + (cfg.vision_tokens if cfg.family == "vlm"
+                             else 0)
         for i in range(gen):
             lg, cache = decode(params, cache, tok,
-                               jnp.asarray(prompt_len + i, jnp.int32))
+                               jnp.asarray(pos0 + i, jnp.int32))
             tok = jnp.argmax(lg, -1).astype(jnp.int32)
             kept.append(np.asarray(lg))
         batches.append(bsz)
@@ -66,7 +78,8 @@ def _reference_loop(jm, params, cfg, *, batch, prompt_len, gen, rounds):
 
 
 @pytest.mark.parametrize("arch", ("zamba2-7b", "qwen3-0.6b",
-                                  "deepseek-moe-16b"))
+                                  "deepseek-moe-16b", "internvl2-2b",
+                                  "whisper-base"))
 def test_serve_matches_reference_loop(arch):
     kw = dict(batch=3, prompt_len=12, gen=4, rounds=2)
     jcfg = jget_arch(arch).smoke.replace(dtype="float32", remat="none")
