@@ -32,10 +32,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    too), InternVL2-2B (its 1,280 positions of vision prefix and prompt)
    and Whisper-base (8 heads of 64: the encoder's non-causal 1,500 x
    1,500, the decoder's non-causal cross-attention over 1,500 frames in
-   prefill and in decode with no cache length, in bf16 and float32), a
+   prefill and in decode with no cache length, in bf16 and float32),
+   DeepSeek-V2-236B's MLA prefill (128 heads at head dim 192, v's last 64
+   columns zero as the model pads them, and the output's exact zeros
+   there; in bf16 and float32), a
    ragged length, and GQA, window and softcap cases, timed
    beside ``scaled_dot_product_attention``, with each call's route (and
-   key splits for decode), TFLOP/s and share of the bound; at the six
+   key splits for decode), TFLOP/s and share of the bound; at the seven
    bf16 serving calls, how the route rounds P (against the reference and
    against float32 attention, the TPU kernel's arithmetic); the decode
    route's float32 split partials against ``ref.attention_partials``;
@@ -101,24 +104,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 6. serving path, carbon-aware serving at full published width in bf16
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
    Qwen3-0.6B, RWKV6-7B, DeepSeekMoE-16B, InternVL2-2B (after its 256
-   zero vision embeddings) and Whisper-base (prompts of 128 tokens on
-   1,500 zero frames), 2 rounds of 4 prompts of 1,024 tokens and 32
-   decoded tokens each, with exact launch counts of #4
+   zero vision embeddings), Whisper-base (prompts of 128 tokens on
+   1,500 zero frames) and DeepSeek-V2-236B (8 of its 60 layers: the
+   dense first layer and 7 MoE layers), 2 rounds of 4 prompts of 1,024
+   tokens and 32 decoded tokens each, with exact launch counts of #4
    and #5 (and their calls by route: RWKV6's 64 scans all on ``gla_vec``;
    DeepSeekMoE's 56 prefill and 1,792 decode calls of #4, InternVL2's 48
-   and 1,536, Whisper's 36 and 768), prefill and
+   and 1,536, Whisper's 36 and 768, DeepSeek-V2's 16 and none: its
+   absorbed decode over the latent cache is plain torch), prefill and
    per-token times, tokens/s and peak memory; a full-width check of a
    decode step's logits against the prefill of the same tokens; one
    profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
    busy share and #5's share of it) and one profiled decode step of each,
    and of InternVL2 and Whisper with #4's share;
-   for DeepSeekMoE the share of routed assignments each round's prefill
-   dropped at the published capacity factor of 1.25, the same prefill
-   twice bit for bit, the decode check at a capacity factor of 11 (E / k
-   rounded up: a slot for every token) with no assignment dropped, held
-   in float32 at full width and depth (in bf16 printed: route flips move
-   it past 5e-2), and a profiled prefill and decode step with #4's
-   share;
+   for DeepSeekMoE and DeepSeek-V2 the share of routed assignments each
+   round's prefill dropped at the published capacity factor of 1.25, the
+   same prefill twice bit for bit, the decode check at a capacity factor
+   of E / k rounded up (11 and 27: a slot for every token) with no
+   assignment dropped, held in float32 (DeepSeekMoE at full depth,
+   DeepSeek-V2 at its dense layer and one MoE layer: the absorbed decode
+   against the expanded prefill; in bf16 held within 5e-2 only where no
+   route flipped, since a flip moves it past that), on that float32 model one prefill through the scatter
+   dispatch against the einsum dispatch, a profiled prefill and decode
+   step with #4's share, and DeepSeek-V2's latent cache bytes;
 6b. the trainer on the card (``launch.train.train``, bf16, random weights
    from a seed, the reference trainer's batch 8, sequence 256, lr 3e-3 and
    warmup 20): Qwen3-0.6B at full published width for 20 steps with the
@@ -136,6 +144,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    Zamba2-7B at its published widths and 12 of 81 layers, RWKV6-7B at
    its published widths and 8 of 32 layers, and DeepSeekMoE-16B at its
    published widths and 4 of 28 layers (its aux loss finite each step),
+   DeepSeek-V2-236B at its published widths and 1 of 60 layers (its
+   dense first layer with its MLA mixer),
    InternVL2-2B and Whisper-base at full width and depth (the stub's zero
    frames in each batch, seeded vision embeddings in place of the stub's
    zeros, whose gradients overflow at 24 layers),
@@ -157,7 +167,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
    and the serving smoke configs (Zamba2, Qwen3, RWKV6, DeepSeekMoE,
-   InternVL2 and Whisper) in
+   InternVL2, Whisper and DeepSeek-V2) in
    float32, cuda against cpu (logits of prefill and 4 decode steps, greedy
    tokens);
 8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model
@@ -832,7 +842,10 @@ def flash_cases():
     (16 on 8 heads of 128); Whisper-base's calls (8 heads of 64): the
     encoder's non-causal self-attention over 1,500 frames, the decoder's
     non-causal cross-attention of 128 prompt positions and of one token
-    over them (no cache length), the two cross calls in float32 too. The
+    over them (no cache length), the two cross calls in float32 too;
+    DeepSeek-V2-236B's expanded MLA prefill (128 heads, q and k of head
+    dim 192, v zero past its 128 columns: ``MLA_V_DIM``), in float32 too
+    at a shorter sequence (the route of the float32 decode check). The
     decode shapes run in float32
     too: there the 2e-5 limit is far below the ~1e-3 that one key too many
     or too few (an off-by-one ``length`` or ``q_offset``) moves an output
@@ -870,7 +883,16 @@ def flash_cases():
         ("whisper cross decode", B, 1, E, 8, 8, 64, bf, cross),
         ("whisper cross prefill float32", B, W, E, 8, 8, 64, f, cross),
         ("whisper cross decode float32", B, 1, E, 8, 8, 64, f, cross),
+        ("deepseek-v2 prefill (MLA)", B, P, P, 128, 128, 192, bf,
+         dict(causal=True)),
+        ("deepseek-v2 prefill float32 (MLA)", 2, 512, 512, 128, 128, 192, f,
+         dict(causal=True)),
     ]
+
+
+# the MLA cases' v head dim: v is zero-padded from it to q's 192 columns
+MLA_V_DIM = {"deepseek-v2 prefill (MLA)": 128,
+             "deepseek-v2 prefill float32 (MLA)": 128}
 
 
 def sdpa_call(q, k, v, mask):
@@ -915,6 +937,9 @@ def phase_flash_kernel(card):
         g = torch.Generator(device=dev).manual_seed(Sq + Sk + H)
         q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                    for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+        vd = MLA_V_DIM.get(label)
+        if vd is not None:
+            v[..., vd:] = 0
 
         def kern():
             return fa_kernel.flash_attention_cuda(q, k, v, **mask)
@@ -955,6 +980,13 @@ def phase_flash_kernel(card):
         if not err <= tol:
             raise AssertionError(f"flash attention disagrees with plain: "
                                  f"{label}, {err:.3e}")
+        if vd is not None:
+            pad = got[..., vd:].abs().max().item()
+            print(f"[kernel] flash_attention {label}: the output's columns "
+                  f"{vd}..{H - 1} (v's zero padding) max|.| = {pad} (must "
+                  f"be 0: the model slices them off)", flush=True)
+            if pad != 0:
+                raise AssertionError(f"{label}: padded columns not zero")
         if label in P_ROUNDING_CASES:
             p_rounding(label, route, got, want, q, k, v, mask)
         records[label] = {
@@ -977,7 +1009,8 @@ def phase_flash_kernel(card):
 # the bf16 serving calls whose rounding of P is held against the TPU
 # kernel's arithmetic
 P_ROUNDING_CASES = ("zamba2 prefill", "zamba2 decode", "qwen3 prefill (GQA)",
-                    "qwen3 decode (GQA)", "deepseek-moe prefill",
+                    "qwen3 decode (GQA)", "deepseek-v2 prefill (MLA)",
+                    "deepseek-moe prefill",
                     "deepseek-moe decode")
 
 
@@ -2340,9 +2373,16 @@ def phase_fleet():
 # ------------------------------------------------- phase 6: serving path
 
 SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b",
-               "internvl2-2b", "whisper-base")
+               "internvl2-2b", "whisper-base", "deepseek-v2-236b")
 CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
 FLOAT32_CONSISTENCY_TOL = 1e-4        # the same in float32 (serving's golden)
+DISPATCH_TOL = 1e-4                   # scatter vs einsum, x max|logit|
+# DeepSeek-V2-236B at its published widths, cut to 8 of 60 layers (the
+# dense first layer and 7 MoE layers: 29.2 B parameters, 54.4 GiB in
+# bf16; the whole model's 235.7 B would take 440 GiB); its float32 checks
+# at the dense layer and one MoE layer (5.36 B parameters, 20 GiB)
+SERVE_LAYERS = {"deepseek-v2-236b": 8}
+FLOAT32_LAYERS = {"deepseek-v2-236b": 2}
 
 
 def no_drop_capacity(m):
@@ -2378,8 +2418,12 @@ def launches_per_call(cfg):
     once a group in both; RWKV6 the scan once a layer in a prefill and
     nothing in decode (its step is plain); an encoder-decoder attention
     once an encoder layer and twice a decoder layer (self and cross) in a
-    prefill, twice a decoder layer in decode; a dense, MoE or VLM model
-    attention once a layer in both."""
+    prefill, twice a decoder layer in decode; an MLA model attention once
+    a layer in a prefill and nothing in decode (its absorbed step over the
+    latent cache is plain); a dense, MoE or VLM model attention once a
+    layer in both."""
+    if cfg.mla is not None:
+        return (cfg.num_layers, 0), (0, 0)
     if cfg.family == "encdec":
         return (cfg.encoder_layers + 2 * cfg.num_layers, 0), \
             (2 * cfg.num_layers, 0)
@@ -2399,12 +2443,12 @@ def gla_route_of(cfg):
 
 
 def phase_serve():
-    """Carbon-aware serving at full published width on the card: the six
-    models, exact launch counts (#4's and #5's by route too), a
-    decode-vs-prefill check, a profiled prefill and decode step of Zamba2,
-    RWKV6, DeepSeekMoE, InternVL2 and Whisper, and DeepSeekMoE's routing
-    checks
-    (``moe_serve_checks``). Returns the launches of #4 and #5, their calls
+    """Carbon-aware serving at full published width on the card: the seven
+    models (DeepSeek-V2 at SERVE_LAYERS' depth), exact launch counts (#4's
+    and #5's by route too), a decode-vs-prefill check, a profiled prefill
+    and decode step of Zamba2, RWKV6, DeepSeekMoE, InternVL2, Whisper and
+    DeepSeek-V2, the MoE models' routing checks (``moe_serve_checks``) and
+    their float32 checks (``moe_float32_checks``). Returns the launches of #4 and #5, their calls
     by route, #5's calls by model and route, and #4's launches by
     model."""
     from repro_torch.configs import get_arch
@@ -2416,16 +2460,21 @@ def phase_serve():
     fa_by_model = {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).config.replace(remat="none")
+        full_depth = cfg.num_layers
+        cfg = cfg.replace(num_layers=SERVE_LAYERS.get(arch, full_depth))
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg, "cuda", seed=0)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
         print(f"[serve] {arch}: {type(model).__name__}, "
               f"{n_params / 1e9:.3f} B parameters "
-              f"({cfg.dtype}), built on the card from seed 0 in "
+              f"({cfg.dtype}, {cfg.num_layers} of {full_depth} layers, "
+              f"d_model {cfg.d_model}), built on the card from seed 0 in "
               f"{time.perf_counter() - t0:.2f} s; weights "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while "
+              f"built)", flush=True)
         prompt = serve_shape(arch, cfg)[0]
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2483,6 +2532,8 @@ def phase_serve():
         totals[1] += counts[4]
         if counts[3]:
             fa_by_model[arch] = counts[3]
+        if cfg.mla is not None:
+            latent_cache_bytes(arch, model)
         if cfg.moe:
             moe_serve_checks(arch, cfg, model, res)
         else:
@@ -2496,8 +2547,29 @@ def phase_serve():
         del model
         torch.cuda.empty_cache()
         if cfg.moe:
-            moe_float32_consistency(arch, cfg)
+            moe_float32_checks(arch, cfg.replace(
+                num_layers=FLOAT32_LAYERS.get(arch, cfg.num_layers)))
     return totals, routes, gla_routes, gla_by_model, fa_by_model
+
+
+def latent_cache_bytes(arch, model):
+    """An MLA model's decode cache at the serving shape (the latent ckv
+    and krope of every layer), beside the K and V an expanded cache of
+    the same heads would hold."""
+    cfg = model.cfg
+    _, _, max_seq = serve_shape(arch, cfg)
+    cache = model.init_cache(SERVE_BATCH, max_seq)
+    got = sum(t.nbytes for c in cache.values() for t in c.values())
+    a, m = cfg.attn, cfg.mla
+    per = m.kv_lora_rank + m.rope_head_dim
+    expanded = (a.num_heads * (m.nope_head_dim + m.rope_head_dim
+                               + m.v_head_dim))
+    print(f"[serve] {arch}: latent cache {got} bytes ({SERVE_BATCH} x "
+          f"{max_seq} slots x {cfg.num_layers} layers x {per} values, "
+          f"{cfg.dtype}); an expanded K and V of {a.num_heads} heads "
+          f"would hold {expanded} values a position and layer, "
+          f"{expanded / per:.1f}x as many", flush=True)
+    del cache
 
 
 def decode_consistency(arch, cfg, model, B=2, tol=CONSISTENCY_TOL):
@@ -2640,35 +2712,45 @@ def routed(model):
     out["last"] = last
 
 
-def checked_consistency(arch, cfg, model, tol):
+def checked_consistency(arch, cfg, model, tol, unless_flipped=False):
     """``decode_consistency`` under ``routed``: the routed assignments its
     two prefills and decode step dropped (there must be none), and in how
     many (row, MoE layer) pairs the decoded token's top-k experts differ
-    from those of the full prefill's last position."""
+    from those of the full prefill's last position. With
+    ``unless_flipped``, ``tol`` is held only where no such pair differs
+    (a flipped route computes another function, which no rounding limit
+    bounds)."""
     n = len(moe_layers(model))
     with routed(model) as seen:
-        decode_consistency(arch, cfg, model, tol=tol)
+        gap = decode_consistency(arch, cfg, model,
+                                 tol=None if unless_flipped else tol)
     dec, full = seen["last"][n:2 * n], seen["last"][2 * n:]
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(dec, full))
+    held = "" if not unless_flipped else (
+        f"; the gap held within {tol:g}: no route flipped" if not flips
+        else "; the gap not held: routes flipped")
     print(f"[serve] {arch} ({cfg.dtype}): at capacity factor "
           f"{cfg.moe.capacity_factor:g} the check's two prefills and decode "
           f"step dropped {seen['dropped']} of {seen['assignments']} routed "
           f"assignments; the decoded token's top-{cfg.moe.top_k} experts "
           f"differ from the full prefill's last position's in {flips} of "
-          f"{dec[0].shape[0] * n} (row, MoE layer) pairs", flush=True)
+          f"{dec[0].shape[0] * n} (row, MoE layer) pairs{held}", flush=True)
     if seen["dropped"]:
         raise AssertionError(f"{arch}: the decode check's prefill dropped "
                              f"{seen['dropped']} assignments")
+    if unless_flipped and not flips and not gap <= tol:
+        raise AssertionError(f"{arch}: decode vs prefill gap {gap:.3e} with "
+                             f"no route flipped")
 
 
 @contextmanager
-def moe_capacity(model, factor):
-    """The model's MoE layers at another capacity factor inside the block
-    (every module that holds the model's config gets a copy with it)."""
+def moe_options(model, **fields):
+    """The model's MoE layers with other ``MoEConfig`` fields (a capacity
+    factor, a dispatch) inside the block (every module that holds the
+    model's config gets a copy with them)."""
     import dataclasses
     old = model.cfg
-    new = old.replace(moe=dataclasses.replace(old.moe,
-                                              capacity_factor=factor))
+    new = old.replace(moe=dataclasses.replace(old.moe, **fields))
     mods = [m for m in model.modules() if getattr(m, "cfg", None) is old]
     for m in mods:
         m.cfg = new
@@ -2679,20 +2761,25 @@ def moe_capacity(model, factor):
             m.cfg = old
 
 
-def moe_float32_consistency(arch, cfg):
-    """The decode-vs-prefill check of an MoE model at full published width
-    and depth in float32 (built from seed 0 once the bf16 model is freed;
-    ~61 GiB of weights for DeepSeekMoE-16B) at ``no_drop_capacity``, held
-    within FLOAT32_CONSISTENCY_TOL: the decode path against the prefill
-    without bf16's rounding, and no assignment dropped."""
+def moe_float32_checks(arch, cfg):
+    """An MoE model at full published width in float32 (built from seed 0
+    once the bf16 model is freed; ~61 GiB of weights for DeepSeekMoE-16B
+    at full depth, ~20 GiB for DeepSeek-V2 at FLOAT32_LAYERS' depth): the
+    decode-vs-prefill check at ``no_drop_capacity``, held within
+    FLOAT32_CONSISTENCY_TOL (the decode path against the prefill without
+    bf16's rounding; for MLA the absorbed decode against the expanded
+    prefill), with no assignment dropped; then ``dispatch_check``."""
     import dataclasses
 
     from repro_torch.models import build_model
+    published = cfg.moe.capacity_factor
     cfg = cfg.replace(dtype="float32", moe=dataclasses.replace(
         cfg.moe, capacity_factor=no_drop_capacity(cfg.moe)))
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, "cuda", seed=0)
+    print(f"[serve] {arch} (float32): {cfg.num_layers} layers", flush=True)
     checked_consistency(arch, cfg, model, tol=FLOAT32_CONSISTENCY_TOL)
+    dispatch_check(arch, model, published)
     weights = sum(p.numel() for p in model.parameters()) * 4 / 2**30
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[serve] {arch} (float32): weights {weights:.2f} GiB, peak "
@@ -2701,15 +2788,45 @@ def moe_float32_consistency(arch, cfg):
     torch.cuda.empty_cache()
 
 
+def dispatch_check(arch, model, factor, B=2):
+    """One prefill of B x SERVE_PROMPT seeded tokens through the MoE
+    layers' ``"scatter"`` dispatch against their ``"einsum"`` dispatch
+    at capacity factor ``factor`` (the published one, where tokens are
+    dropped), held within DISPATCH_TOL of max|logit|, with the routed
+    assignments dropped counted."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, SERVE_PROMPT),
+                         generator=g, device="cuda")
+    out = {}
+    for dispatch in ("einsum", "scatter"):
+        with moe_options(model, capacity_factor=factor, dispatch=dispatch), \
+                routed(model) as seen, torch.inference_mode():
+            out[dispatch] = model.prefill({"tokens": toks},
+                                          SERVE_MAX_SEQ)[0]
+    e, sc = out["einsum"], out["scatter"]
+    if not (torch.isfinite(e).all() and torch.isfinite(sc).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    gap = (sc - e).abs().max().item() / e.abs().max().item()
+    print(f"[serve] {arch} ({model.cfg.dtype}): a {B} x {SERVE_PROMPT}-token "
+          f"prefill through the scatter dispatch vs the einsum dispatch at "
+          f"capacity factor {factor:g} ({seen['dropped']} of "
+          f"{seen['assignments']} routed assignments dropped): max|logit "
+          f"gap| / max|logit| = {gap:.3e} (limit {DISPATCH_TOL:g})",
+          flush=True)
+    if not gap <= DISPATCH_TOL:
+        raise AssertionError(f"{arch}: scatter vs einsum gap {gap:.3e}")
+
+
 def moe_serve_checks(arch, cfg, model, res):
     """After ``serve``: each round's prefill again on its prompts (serve's
     ``RandomState(0)`` stream) with the routed assignments it dropped at
     the config's capacity factor counted; round 0's prefill once more,
     its logits and cache bit for bit the first's (the dispatch adds in no
     order that varies); decode against prefill at ``no_drop_capacity``,
-    where the prefills must drop nothing, printed and not held in bf16
-    (a routing boundary crossed in bf16 moves the logits by more than
-    bf16's limit; ``moe_float32_consistency`` holds the check in float32);
+    where the prefills must drop nothing, held in bf16 only where no
+    route flipped (a routing boundary crossed in bf16 moves the logits by
+    more than bf16's limit; ``moe_float32_checks`` holds the check in
+    float32);
     a profiled prefill and decode step with #4's share."""
     import numpy as np
     rng = np.random.RandomState(0)
@@ -2743,8 +2860,12 @@ def moe_serve_checks(arch, cfg, model, res):
             raise AssertionError(f"{arch}: two prefills of the same tokens "
                                  f"differ")
         del cache, cache2, logits, again
-    with moe_capacity(model, no_drop_capacity(m)):
-        checked_consistency(arch, model.cfg, model, tol=None)
+    torch.cuda.reset_peak_memory_stats()
+    with moe_options(model, capacity_factor=no_drop_capacity(m)):
+        checked_consistency(arch, model.cfg, model, tol=CONSISTENCY_TOL,
+                            unless_flipped=True)
+    print(f"[serve] {arch}: peak device memory of the no-drop check "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_prefill(arch, model, res.prefill_ms, which="#4")
     profile_decode(arch, model, which="#4")
 
@@ -2765,6 +2886,11 @@ RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 2
 # DeepSeekMoE-16B at its published widths, cut to 4 of 28 layers (its dense
 # first layer and 3 MoE layers; ~2.3 B parameters, about RWKV6's at 8)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2
+# DeepSeek-V2-236B at its published widths, cut to 1 of 60 layers: its
+# dense first layer with its MLA mixer (1.39 B parameters, ~36 GB with
+# AdamW's old and new float32 moments at ~26 bytes a parameter); one MoE
+# layer more (5.36 B, ~130 GB) does not fit the card
+V2_TRAIN_LAYERS, V2_TRAIN_STEPS = 1, 2
 # InternVL2-2B (~1.9 B parameters; 256 vision positions before each
 # sequence) and Whisper-base (~71 M; 1,500 frames) at full width and depth
 STUB_TRAIN_STEPS = 2
@@ -3138,8 +3264,9 @@ def phase_train():
     printed), loss finite and falling; the autograd Functions' gradients
     against the plain route; Zamba2-7B and RWKV6-7B at their published
     widths and ZAMBA_TRAIN_LAYERS / RWKV_TRAIN_LAYERS layers; the
-    kill-and-resume replay; DeepSeekMoE-16B at its published widths and
-    MOE_TRAIN_LAYERS layers; InternVL2-2B and Whisper-base at full width
+    kill-and-resume replay; DeepSeekMoE-16B and DeepSeek-V2-236B at their
+    published widths and MOE_TRAIN_LAYERS / V2_TRAIN_LAYERS layers;
+    InternVL2-2B and Whisper-base at full width
     and depth. Returns the launches of #4 and #5 on the training runs,
     #5's calls by model and route, and #4's launches by model."""
     from repro_torch.configs import get_arch
@@ -3172,12 +3299,18 @@ def phase_train():
     _, mlaunched, _ = run_train(
         f"deepseek-moe-16b ({MOE_TRAIN_LAYERS} of 28 layers)", mcfg,
         MOE_TRAIN_STEPS)
+    vcfg = get_arch("deepseek-v2-236b").config.replace(
+        num_layers=V2_TRAIN_LAYERS, remat="none")
+    _, vlaunched, _ = run_train(
+        f"deepseek-v2-236b ({V2_TRAIN_LAYERS} of 60 layers)", vcfg,
+        V2_TRAIN_STEPS)
     stubbed = train_stub_families()
     totals = [sum(x) for x in zip(totals, zlaunched, rlaunched, mlaunched,
-                                  *stubbed.values())]
+                                  vlaunched, *stubbed.values())]
     kill_and_resume()
     fa_by_model = {"qwen3-0.6b": launched[0], "zamba2-7b": zlaunched[0],
                    "deepseek-moe-16b": mlaunched[0],
+                   "deepseek-v2-236b": vlaunched[0],
                    **{a: n[0] for a, n in stubbed.items()}}
     return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model
 

@@ -33,7 +33,9 @@ def dense_init(shape, in_axes=(0,), dtype=torch.bfloat16, scale=1.0, *,
     fan_in = math.prod(shape[a] for a in in_axes)
     w = torch.empty(shape, dtype=f32, device=device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * (scale * fan_in ** -0.5)).to(dtype)
+    # scaled in place: a second float32 copy of DeepSeek-V2's experts
+    # (10 GB a layer) would not fit beside the weights built before it
+    return w.mul_(scale * fan_in ** -0.5).to(dtype)
 
 
 def embed_init(vocab, d, dtype=torch.bfloat16, *, generator, device):

@@ -1,6 +1,6 @@
 """``build_model``: the counterpart of ``repro.models.model.build_model``
-for the families ported so far (dense, MoE and VLM without MLA, hybrid,
-RWKV6's ssm and the encoder-decoder). The reference's ``param_specs``,
+for every family (dense, MoE with or without MLA, VLM, hybrid, RWKV6's
+ssm and the encoder-decoder). The reference's ``param_specs``,
 ``cache_specs``, ``batch_specs`` and ``input_specs`` are
 ``jax.eval_shape`` dry-run helpers and have no counterpart (ROADMAP.md:
 out of scope on one card).
@@ -17,7 +17,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM, RWKVLM, ZambaLM
 
-_LATER = "ROADMAP.md queue 1, item 4: MLA is the family left to port"
 _MODELS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
            "hybrid": ZambaLM, "ssm": RWKVLM, "encdec": EncDecLM}
 
@@ -26,14 +25,12 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     """The model of ``cfg`` on ``device`` (default ``cuda``; raises without
     a card unless ``"cpu"`` is asked for), its weights drawn from
     ``generator`` or a generator on that device seeded with ``seed``.
-    Raises ``NotImplementedError`` for a family or option not ported."""
+    Raises ``NotImplementedError`` for a family it does not know and for
+    ``flash_decode``, which is out of scope on one card."""
     dev = device_mod.resolve(device)
     if cfg.family not in _MODELS:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                                  f"ported yet ({_LATER})")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported "
-                                  f"yet ({_LATER})")
+        raise NotImplementedError(f"{cfg.name}: no model of family "
+                                  f"{cfg.family!r}")
     if cfg.flash_decode:
         raise NotImplementedError(f"{cfg.name}: flash_decode shards the "
                                   "cache over a mesh; out of scope on one "

@@ -1,8 +1,9 @@
 """Decoder LMs: ``DecoderLM`` (the dense and MoE families), the hybrid
 ``ZambaLM`` (Mamba2 backbone plus one weight-shared attention block) and
 the attention-free ``RWKVLM`` (RWKV6). The counterpart of
-``repro.models.transformer``'s blocks and those models, without their MLA
-branch (ROADMAP.md queue 1, item 4).
+``repro.models.transformer``'s blocks and those models; a block's mixer is
+GQA or, where the config has ``mla`` (DeepSeek-V2), MLA, whose cache holds
+the latent ``ckv`` and ``krope`` in place of ``k`` and ``v``.
 
 The reference stacks per-layer parameters for ``lax.scan``; here each
 layer is a module of an ``nn.ModuleList`` (``stack``; ``groups`` of
@@ -40,9 +41,10 @@ f32 = torch.float32
 
 class Block(nn.Module):
     """``init_block`` / ``apply_block`` / ``apply_block_decode`` with the
-    GQA mixer and the ``ffn`` of the reference's kind: ``"mlp"`` (width
-    ``d_ff``), ``"dense_prefix"`` (an MoE model's leading dense blocks,
-    width ``moe.dense_d_ff``) or ``"moe"``."""
+    GQA mixer (MLA where the config has ``mla``) and the ``ffn`` of the
+    reference's kind: ``"mlp"`` (width ``d_ff``), ``"dense_prefix"`` (an
+    MoE model's leading dense blocks, width ``moe.dense_d_ff``) or
+    ``"moe"``."""
 
     def __init__(self, cfg, dtype, *, generator, device, ffn: str = "mlp"):
         super().__init__()
@@ -53,7 +55,8 @@ class Block(nn.Module):
         if cfg.post_norm:
             self.ln1_post = L.param(L.init_rms(cfg.d_model, device=device))
             self.ln2_post = L.param(L.init_rms(cfg.d_model, device=device))
-        self.mixer = A.GQA(cfg, dtype, **kw)
+        self.is_mla = cfg.mla is not None
+        self.mixer = (A.MLA if self.is_mla else A.GQA)(cfg, dtype, **kw)
         self.is_moe = ffn == "moe"
         if self.is_moe:
             self.ffn = MoE(cfg, dtype, **kw)
@@ -80,9 +83,11 @@ class Block(nn.Module):
 
     def forward(self, x, positions, *, window: Optional[int] = None,
                 return_kv: bool = False):
-        """Returns (x, aux loss, (k, v) or None)."""
+        """Returns (x, aux loss, the mixer's (k, v), or MLA's (ckv,
+        k_rope), or None). MLA takes no window, as in the reference."""
         h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
-        out = self.mixer(h, positions, window=window, return_kv=return_kv)
+        kw = {} if self.is_mla else dict(window=window)
+        out = self.mixer(h, positions, return_kv=return_kv, **kw)
         kv = None
         if return_kv:
             out, kv = out
@@ -90,19 +95,30 @@ class Block(nn.Module):
         return x, aux, kv
 
     def decode(self, x, cache, pos: int, *, window: Optional[int] = None):
-        """cache: {"k", "v"} (B, Smax, K, H), written in place. An MoE ffn
-        runs with ``no_drop``."""
+        """cache: {"k", "v"} (B, Smax, K, H), or MLA's {"ckv", "krope"}
+        (B, Smax, kv_lora) and (B, Smax, rope), written in place. An MoE
+        ffn runs with ``no_drop``."""
         h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
-        out, kc, vc = self.mixer.decode(h, cache["k"], cache["v"], pos,
-                                        window=window)
+        if self.is_mla:
+            out, ckv, krope = self.mixer.decode(h, cache["ckv"],
+                                                cache["krope"], pos)
+            new = {"ckv": ckv, "krope": krope}
+        else:
+            out, kc, vc = self.mixer.decode(h, cache["k"], cache["v"], pos,
+                                            window=window)
+            new = {"k": kc, "v": vc}
         x, _ = self._ffn(x, out, no_drop=True)
-        return x, {"k": kc, "v": vc}
+        return x, new
 
 
 def attn_cache_shapes(cfg, batch: int, max_seq: int):
-    """``_attn_cache_shapes``: one layer's KV cache shapes and dtypes."""
+    """``_attn_cache_shapes``: one layer's KV cache shapes and dtypes (an
+    MLA layer's latent ``ckv`` and ``krope``)."""
     a = cfg.attn
     dt = L.torch_dtype(cfg.dtype)
+    if cfg.mla is not None:
+        return {"ckv": ((batch, max_seq, cfg.mla.kv_lora_rank), dt),
+                "krope": ((batch, max_seq, cfg.mla.rope_head_dim), dt)}
     shape = (batch, max_seq, a.num_kv_heads, a.head_dim)
     return {"k": (shape, dt), "v": (shape, dt)}
 
@@ -118,10 +134,11 @@ def pad_kv_to(x, max_seq: int, axis: int = 1):
     return F.pad(x, pad)
 
 
-def _stack_kv(kvs, max_seq):
-    """Per-layer (k, v) of (B, S, K, H) -> {"k", "v"} (L, B, max_seq, K, H)."""
+def _stack_kv(kvs, max_seq, names=("k", "v")):
+    """Per-layer pairs (k, v) of (B, S, K, H), or MLA's (ckv, k_rope) ->
+    {names} stacked on a leading layer axis, padded to max_seq."""
     return {name: pad_kv_to(torch.stack([kv[i] for kv in kvs]), max_seq,
-                            axis=2) for i, name in enumerate(("k", "v"))}
+                            axis=2) for i, name in enumerate(names)}
 
 
 class _LM(nn.Module):
@@ -149,22 +166,21 @@ class _LM(nn.Module):
 
 class DecoderLM(_LM):
     """Dense, MoE and VLM decoders (``family`` ``"dense"``, ``"moe"`` or
-    ``"vlm"``, no MLA): windows, post-norms, embedding scale, logit
-    softcap and tied embeddings as the config says. An MoE model runs
+    ``"vlm"``; GQA or MLA mixers): windows, post-norms, embedding scale,
+    logit softcap and tied embeddings as the config says. An MoE model runs
     ``moe.first_dense_layers`` dense blocks (``prefix_{i}``, ffn width
-    ``moe.dense_d_ff``) before its ``stack`` of MoE blocks; its loss adds
-    the routers' auxiliary loss, summed over the layers. A VLM (the dense
+    ``moe.dense_d_ff``) before its ``stack`` of MoE blocks (which may hold
+    none: a config cut to its dense prefix); its loss adds the routers'
+    auxiliary loss, summed over the layers. A VLM (the dense
     tree) puts ``batch["vision_embeds"]`` (B, vision_tokens, d_model),
     the stub frontend's output, in front of the tokens in ``forward``,
     ``prefill`` and ``loss``; its decode positions count them."""
 
     def __init__(self, cfg, *, generator, device):
-        if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"DecoderLM here takes the dense, MoE and VLM families "
-                f"without MLA, not {cfg.family!r}"
-                + (" with MLA" if cfg.mla is not None else "")
-                + " (MLA: ROADMAP.md queue 1, item 4)")
+                f"DecoderLM takes the dense, MoE and VLM families, not "
+                f"{cfg.family!r}")
         super().__init__(cfg, generator=generator, device=device,
                          tied=cfg.tie_embeddings)
         dt = self.dtype
@@ -258,10 +274,13 @@ class DecoderLM(_LM):
     def prefill(self, batch, max_seq: int):
         x, _, (prefix_kv, kvs) = self.forward(
             batch["tokens"], batch.get("vision_embeds"), collect_kv=True)
-        cache = {"stack": _stack_kv(kvs, max_seq)}
-        for i, (k, v) in enumerate(prefix_kv):
-            cache[f"prefix_{i}"] = {"k": pad_kv_to(k, max_seq),
-                                    "v": pad_kv_to(v, max_seq)}
+        names = ("ckv", "krope") if self.cfg.mla is not None else ("k", "v")
+        # a stack of no layers holds empty (0, B, max_seq, ...) leaves
+        cache = {"stack": _stack_kv(kvs, max_seq, names) if kvs else
+                 self.init_cache(x.shape[0], max_seq)["stack"]}
+        for i, kv in enumerate(prefix_kv):
+            cache[f"prefix_{i}"] = {n: pad_kv_to(t, max_seq)
+                                    for n, t in zip(names, kv)}
         return self._logits(x[:, -1], self._head(),
                             self.cfg.logit_softcap), cache
 
@@ -273,7 +292,7 @@ class DecoderLM(_LM):
             x, _ = blk.decode(x, cache[f"prefix_{i}"], pos)
         st = cache["stack"]
         for i, (blk, w) in enumerate(zip(self.stack, self.windows())):
-            x, _ = blk.decode(x, {"k": st["k"][i], "v": st["v"][i]}, pos,
+            x, _ = blk.decode(x, {n: t[i] for n, t in st.items()}, pos,
                               window=w)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(x[:, 0], self._head(), cfg.logit_softcap), cache

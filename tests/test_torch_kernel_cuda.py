@@ -536,6 +536,11 @@ FLASH_CASES = [
     (2, 1, 1500, 8, 8, 64, False, None, None, 0, None, torch.bfloat16),
     (2, 1, 1500, 8, 8, 64, False, None, None, 0, None, torch.float32),
     (2, 1, 300, 8, 4, 64, False, None, None, 0, 170, torch.float32),
+    # head dim 192 (DeepSeek-V2's MLA prefill: 128 nope + 64 rope, 128
+    # heads) on the bf16 prefill route's 256-wide tiles and the float32
+    # route
+    (4, 1024, 1024, 128, 128, 192, True, None, None, 0, None, torch.bfloat16),
+    (1, 300, 300, 16, 16, 192, True, None, None, 0, None, torch.float32),
 ]
 
 

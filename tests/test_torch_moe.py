@@ -4,7 +4,7 @@ top-k; ``apply_moe`` for both dispatches at the config's capacity factor
 (1.25) and at 0.5, with and without ``no_drop``; ``DecoderLM``'s prefill
 and four decode steps with every cache leaf; the loss, its aux loss and
 every gradient leaf; one train step; a bf16 prefill; and what
-``build_model`` and ``convert`` still refuse.
+``build_model`` and ``convert`` build and refuse.
 
 The weights are the JAX model's own init, carried across by
 ``convert.model_params_from_numpy``; inputs come from numpy with a seed.
@@ -358,7 +358,8 @@ def test_train_step_matches_reference(ref, grads):
 def test_build_model_builds_moe_and_refuses_mla(ref):
     """DeepSeekMoE builds (its first layer a dense prefix of width
     ``dense_d_ff``, the rest MoE blocks) on the CPU when asked and on the
-    card by default; DeepSeek-V2 (MoE with MLA) is refused."""
+    card by default; so does DeepSeek-V2 (MoE with MLA mixers), whose
+    sharded MLA flash decode is refused (out of scope on one card)."""
     model = build_model(ref["cfg"], "cpu")
     m = ref["cfg"].moe
     assert model.prefix_0.ffn.wi.shape == (ref["cfg"].d_model,
@@ -370,8 +371,12 @@ def test_build_model_builds_moe_and_refuses_mla(ref):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(get_arch(ARCH).config)
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP.md"):
-        build_model(get_arch("deepseek-v2-236b").smoke, "cpu")
+    v2 = get_arch("deepseek-v2-236b").smoke
+    mla = build_model(v2, "cpu")
+    assert all(isinstance(b.ffn, M.MoE) for b in mla.stack)
+    assert type(mla.prefix_0.mixer).__name__ == "MLA"
+    with pytest.raises(NotImplementedError, match="out of scope"):
+        build_model(v2.replace(flash_decode=True), "cpu")
 
 
 def test_convert_checks_the_moe_stack_length(ref):
