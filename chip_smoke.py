@@ -19,8 +19,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    ``ref.joint_step_s_arrays`` at the slice path's 28 x 512 on its fused
    route (one launch, a thread-block cluster a rollout; the blocks of a
    cluster must agree on nu bit for bit) and its split route (two
-   launches; d' bitwise the fused route's), and at 4 x 3,000 clusters,
-   where the wrapper takes the split route, with the residuals and box
+   launches; d' bitwise the fused route's), at 4 x 3,000 clusters,
+   where the wrapper takes the split route, and at the 8 rollouts of 8
+   clusters of ``examples_torch/scenario_sweep.py --spatial``, with the residuals and box
    violations of d' and s'; and the split route's ``s_project`` alone.
    Max error, conservation residual, bound violations, kernel and plain
    times (CUDA events, median of 20 after warm-up; fewer for the slowest
@@ -158,6 +159,16 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
    leaf of the final checkpoint against an uninterrupted run (bit for bit,
    or within 1e-5);
+6c. the five examples of ``examples_torch/`` in-process on the card, the
+   counts at 0 before each: quickstart, fleet_week, serve_shaped,
+   train_carbon_aware and scenario_sweep's default mode at the originals'
+   defaults, its --risk, --spatial, --telemetry --trace and --sharded at 3
+   days and 2 seeds; exact launches of #1 to #5 (#3's and #4's by route),
+   finite output, the trace read back, Fig 12's counts the numpy draws,
+   the loss falling; #4 at serve_shaped's prefill and decode calls and at
+   train_carbon_aware's float32 call against its plain version and SDPA
+   (#3 at the --spatial sweep's 8 x 8 is held in phase 3); Fig 12 on the
+   card against the CPU; each example's wall seconds;
 7. the golden configuration, the slice configuration at golden size and
    the streaming closed loop (``streaming=True, mpc=True``) at golden size
    over ``forecast_bust_library(3)``, on the card (kernels) against the
@@ -216,6 +227,10 @@ SLICE_ROWS = SLICE_ROLLOUTS * MAIN_CLUSTERS
 SLICE_KERNEL_ROWS = (1000, SLICE_ROWS, 131072)
 # (rollouts, clusters) past one thread-block cluster's rows: #3's split route
 SPLIT_SHAPE = (4, 3000)
+# (rollouts, clusters) of examples_torch/scenario_sweep.py --spatial at the
+# [examples] phase's arguments: 4 mobility scenarios x 2 seeds of its 8
+# clusters, a cluster of one block (its 4 zones are no operand of #3)
+SPATIAL_EXAMPLE_SHAPE = (4 * 2, 8)
 # each path's configuration, params, burned-in state and telemetry-off
 # results, kept by its phase for the telemetry phase's re-runs
 RUNS = {}
@@ -653,8 +668,10 @@ def phase_joint_s(card, drop=0.8):
     """Kernel #3 with the shift update against ``ref.joint_step_s_arrays``:
     at the slice path's 28 x 512 on the fused route (what the wrapper
     picks) and on the split route (the step's kernel, then ``s_project``),
-    and at 4 x 3,000 clusters, past one cluster's rows, where the wrapper
-    takes the split route. Each line: d' and s' against the plain version,
+    at 4 x 3,000 clusters, past one cluster's rows, where the wrapper
+    takes the split route, and at the shape ``examples_torch/
+    scenario_sweep.py --spatial`` gives it (``SPATIAL_EXAMPLE_SHAPE``, one
+    block a cluster) on both routes. Each line: d' and s' against the plain version,
     the residuals and box violations of both, device ms against the bound
     and the plain version; the C blocks of each rollout's cluster must
     agree on nu bit for bit, and the routes on d'. Then ``s_project`` alone
@@ -663,7 +680,8 @@ def phase_joint_s(card, drop=0.8):
     from repro_torch.kernels.vcc_pgd import ref as pgd_ref
     dev = torch.device("cuda")
     record, ms_by_route = None, {}
-    for B, n in ((SLICE_ROLLOUTS, MAIN_CLUSTERS), SPLIT_SHAPE):
+    for B, n in ((SLICE_ROLLOUTS, MAIN_CLUSTERS), SPLIT_SHAPE,
+                 SPATIAL_EXAMPLE_SHAPE):
         kern = random_joint_s(B, n, B * n, dev)
         rows = B * n
         pl = [x.reshape(B, n, x.shape[-1]) for x in kern[:-1]] + [kern[-1]]
@@ -735,6 +753,11 @@ def phase_joint_s(card, drop=0.8):
                       f"{width:.3e}), conservation max|sum_c s'|={s_res:.3e}"
                       f" (plain {s_pres:.3e}), box violation {s_viol:.3e}"
                       f"{agree}; bound share {100 * bound_ms / ms:.1f}%)")
+            if (B, n) == SPATIAL_EXAMPLE_SHAPE and name == "fused":
+                record["spatial_example"] = {
+                    "shape": [B, n], "max_abs_err": err,
+                    "s_max_abs_err": s_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by}
             if n == MAIN_CLUSTERS:
                 ms_by_route[name] = ms
                 if name == "fused":
@@ -924,79 +947,84 @@ FLASH_SOURCES = [f"src/repro_torch/kernels/flash_attention/csrc/{f}" for f in
                   "flash_common.cuh")]
 
 
-def phase_flash_kernel(card):
-    """Kernel #4 against its plain version (both called directly on CUDA
-    tensors), timed beside SDPA, with its route, rate and share of the
-    bound; then the decode route's split partials against
-    ``ref.attention_partials``."""
+def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
+    """One case of kernel #4 against its plain version (both called
+    directly on CUDA tensors), timed beside SDPA, with its route, rate and
+    share of the bound. Returns its record."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     dev = torch.device("cuda")
-    records = {}
-    for label, B, Sq, Sk, N, K, H, dt, mask in flash_cases():
-        g = torch.Generator(device=dev).manual_seed(Sq + Sk + H)
-        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
-                   for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
-        vd = MLA_V_DIM.get(label)
-        if vd is not None:
-            v[..., vd:] = 0
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + H)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
+               for s in ((B, Sq, N, H), (B, Sk, K, H), (B, Sk, K, H)))
+    vd = MLA_V_DIM.get(label)
+    if vd is not None:
+        v[..., vd:] = 0
 
-        def kern():
-            return fa_kernel.flash_attention_cuda(q, k, v, **mask)
+    def kern():
+        return fa_kernel.flash_attention_cuda(q, k, v, **mask)
 
-        def plain():
-            return fa_ref.attention_reference(q, k, v, **mask)
+    def plain():
+        return fa_ref.attention_reference(q, k, v, **mask)
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = FLASH_TOL[dt]
-        ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=10)
-        lib = sdpa_call(q, k, v, mask)
-        lib_ms = None if lib is None else cuda_ms(lib, lead=True)
-        pairs = {k: x for k, x in mask.items() if k != "softcap"}
-        flops = fa_kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
-        nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H,
-                                           q.element_size(), **pairs)
-        bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
-        route = fa_kernel.route(Sq, dt)
-        if route == "flash_decode":
-            begin, end = fa_ref.key_span(Sq, Sk, **pairs)
-            splits = fa_kernel.decode_splits(B, K, N // K * Sq, end - begin,
-                                             card.sms)
-            route += f" (splits {splits})"
-        print(f"[kernel] flash_attention {label}: B={B} Sq={Sq} Sk={Sk} "
-              f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: route {route}; "
-              f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
-              f"{ms:.4f} ms (device), {flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
-              f"the bound; plain {plain_ms:.4f} ms, library "
-              f"(scaled_dot_product_attention) "
-              + ("none (no softcap)" if lib_ms is None else
-                 f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x")
-              + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
-              f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
-              f"{bytes_ms:.4f} ms)", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"flash attention disagrees with plain: "
-                                 f"{label}, {err:.3e}")
-        if vd is not None:
-            pad = got[..., vd:].abs().max().item()
-            print(f"[kernel] flash_attention {label}: the output's columns "
-                  f"{vd}..{H - 1} (v's zero padding) max|.| = {pad} (must "
-                  f"be 0: the model slices them off)", flush=True)
-            if pad != 0:
-                raise AssertionError(f"{label}: padded columns not zero")
-        if label in P_ROUNDING_CASES:
-            p_rounding(label, route, got, want, q, k, v, mask)
-        records[label] = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc",
-            "sources": FLASH_SOURCES,
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
-        del q, k, v, got, want
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = FLASH_TOL[dt]
+    ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=10)
+    lib = sdpa_call(q, k, v, mask)
+    lib_ms = None if lib is None else cuda_ms(lib, lead=True)
+    pairs = {k: x for k, x in mask.items() if k != "softcap"}
+    flops = fa_kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
+    nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H,
+                                       q.element_size(), **pairs)
+    bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
+    route = fa_kernel.route(Sq, dt)
+    if route == "flash_decode":
+        begin, end = fa_ref.key_span(Sq, Sk, **pairs)
+        splits = fa_kernel.decode_splits(B, K, N // K * Sq, end - begin,
+                                         card.sms)
+        route += f" (splits {splits})"
+    print(f"[kernel] flash_attention {label}: B={B} Sq={Sq} Sk={Sk} "
+          f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: route {route}; "
+          f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
+          f"{ms:.4f} ms (device), {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
+          f"the bound; plain {plain_ms:.4f} ms, library "
+          f"(scaled_dot_product_attention) "
+          + ("none (no softcap)" if lib_ms is None else
+             f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x")
+          + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
+          f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
+          f"{bytes_ms:.4f} ms)", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"flash attention disagrees with plain: "
+                             f"{label}, {err:.3e}")
+    if vd is not None:
+        pad = got[..., vd:].abs().max().item()
+        print(f"[kernel] flash_attention {label}: the output's columns "
+              f"{vd}..{H - 1} (v's zero padding) max|.| = {pad} (must "
+              f"be 0: the model slices them off)", flush=True)
+        if pad != 0:
+            raise AssertionError(f"{label}: padded columns not zero")
+    if label in P_ROUNDING_CASES:
+        p_rounding(label, route, got, want, q, k, v, mask)
+    rec = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc",
+        "sources": FLASH_SOURCES,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+    del q, k, v, got, want
+    return rec
+
+
+def phase_flash_kernel(card):
+    """Kernel #4 against its plain version at every case of
+    ``flash_cases`` (``flash_case``); then the decode route's split
+    partials against ``ref.attention_partials``."""
+    records = {case[0]: flash_case(card, *case) for case in flash_cases()}
     flash_partials_check()
     rec = records["zamba2 prefill"]
     rec["decode_ms"] = records["zamba2 decode"]["ms"]
@@ -3315,6 +3343,297 @@ def phase_train():
     return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model
 
 
+# ----------------------------------------------- phase 6c: the examples
+
+# scenario_sweep's variants beyond its default library run at 3 days and
+# 2 seeds (the default mode and the other four examples at the originals'
+# defaults)
+SWEEP_SHORT = ["--days", "3", "--seeds", "2"]
+SWEEP_DAYS, SWEEP_SEEDS = 3, 2
+EXAMPLE_TRACE = "chiprun_out/examples_trace.jsonl"
+EXAMPLE_CKPT = ROOT / "build" / "examples_ckpt"
+# train_carbon_aware's ~100M float32 config (12 layers, 8 query heads on 4
+# KV heads of 64) at its batch 4 x sequence 128: the trainer's attention
+# call and its launches of #4 a step, on the float32 route
+EX_TRAIN_STEPS, EX_TRAIN_LAYERS = 300, 12
+EX_TRAIN_CASE = ("train_carbon_aware prefill float32 (GQA)", 4, 128, 128, 8,
+                 4, 64, torch.float32, dict(causal=True))
+# serve_shaped's attention calls: the Qwen3-0.6B smoke model in bfloat16
+# (4 query heads on 2 KV heads of 32) at batch 4, its 24-token prompts and
+# a mid-generation decode step in its 48-slot cache (24 + 16 + 8); that
+# step in float32 too, where one key too many or too few shows
+# (``flash_cases``)
+EX_SERVE_POS = 24 + 16 // 2
+EX_SERVE_DEC = dict(causal=True, q_offset=EX_SERVE_POS,
+                    length=EX_SERVE_POS + 1)
+EX_SERVE_CASES = [
+    ("serve_shaped prefill (GQA)", 4, 24, 24, 4, 2, 32, torch.bfloat16,
+     dict(causal=True)),
+    ("serve_shaped decode (GQA)", 4, 1, 48, 4, 2, 32, torch.bfloat16,
+     EX_SERVE_DEC),
+    ("serve_shaped decode float32 (GQA)", 4, 1, 48, 4, 2, 32, torch.float32,
+     EX_SERVE_DEC),
+]
+FIG12_MEAN_RTOL = 1e-3                # card vs CPU, treated / control means
+
+
+def example_main(name):
+    import importlib
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(f"examples_torch.{name}").main
+
+
+def run_example(label, name, argv, want, want_routes=None):
+    """``examples_torch/<name>.py``'s ``main(argv + ["--device",
+    "cuda"])`` in-process with the counters at 0 just before it; its wall
+    seconds (ended by a synchronize) and exact launches of #1 to #5
+    (``want``) and, where ``want_routes`` names them, of #3's
+    (``"joint_step"``) or #4's (``"flash_attention"``) routes. Returns its
+    output, wall seconds, launches and both kernels' routes."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.vcc_pgd import kernel as pgd_kernel
+    main = example_main(name)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    routes = {"joint_step": dict(pgd_kernel.joint_step_cuda.routes),
+              "flash_attention": dict(fa_kernel.flash_attention_cuda.routes)}
+    s_proj = pgd_kernel.s_project_cuda.launches
+    print(f"[examples] {label}: {wall:.3f} s wall; launches of #1 to #5 "
+          f"{counts} (expected {want}); #3 by route {routes['joint_step']}, "
+          f"s_project {s_proj}; #4 by route {routes['flash_attention']}",
+          flush=True)
+    if counts != want or s_proj:
+        raise AssertionError(f"[examples] {label}: launches {counts} "
+                             f"(s_project {s_proj}), expected {want}")
+    for kernel, expected in (want_routes or {}).items():
+        if routes[kernel] != expected:
+            raise AssertionError(f"[examples] {label}: {kernel} routes "
+                                 f"{routes[kernel]}, expected {expected}")
+    return out, wall, counts, routes
+
+
+def all_finite(label, values):
+    bad = [v for v in values if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"[examples] {label}: non-finite {bad}")
+
+
+def check_sweep_rows(label, rows):
+    """Every number of a sweep table finite, flex<24h% in [0, 100]."""
+    for r in rows:
+        all_finite(f"{label} {r['scenario']}",
+                   [v for k, v in r.items() if isinstance(v, float)])
+        if not 0.0 <= r.get("flex_within_24h_pct", 0.0) <= 100.0:
+            raise AssertionError(f"[examples] {label} {r['scenario']}: "
+                                 f"flex<24h% {r['flex_within_24h_pct']}")
+
+
+def fig12_draws(n_clusters, days):
+    """(treated, control) cluster-days of the numpy coin the experiment
+    draws from."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    treated = sum(int((rng.rand(n_clusters) < 0.5).sum())
+                  for _ in range(days))
+    return treated, n_clusters * days - treated
+
+
+def fig12_card_vs_cpu(n_clusters=4, days=3):
+    """``fleet_week.fig12_cluster_days`` on the card and on the CPU: the
+    same treated and control counts, their means within FIG12_MEAN_RTOL
+    relative (single cluster-days move with the float32 PD power fit)."""
+    import importlib
+    import numpy as np
+    fw = importlib.import_module("examples_torch.fleet_week")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = fw.fig12_cluster_days(n_clusters, days, device=dev)
+        print(f"[examples] fig12 at {n_clusters} clusters x {days} days on "
+              f"{dev}: {time.perf_counter() - t0:.2f} s", flush=True)
+    (gt, gc), (ct, cc) = got["cuda"], got["cpu"]
+    gaps = [abs(np.mean(a) - np.mean(b)) / abs(np.mean(b))
+            for a, b in ((gt, ct), (gc, cc))]
+    print(f"[examples] fig12 card vs CPU: counts {len(gt)} / {len(gc)} and "
+          f"{len(ct)} / {len(cc)} (the numpy draws: "
+          f"{fig12_draws(n_clusters, days)}); treated means "
+          f"{np.mean(gt):.6f} / {np.mean(ct):.6f}, control "
+          f"{np.mean(gc):.6f} / {np.mean(cc):.6f}: relative gaps "
+          f"{gaps[0]:.3e}, {gaps[1]:.3e} (limit {FIG12_MEAN_RTOL:g})",
+          flush=True)
+    if (len(gt), len(gc)) != (len(ct), len(cc)) \
+            or (len(gt), len(gc)) != fig12_draws(n_clusters, days) \
+            or max(gaps) > FIG12_MEAN_RTOL:
+        raise AssertionError("[examples] fig12 card vs CPU disagree")
+
+
+def train_example_function_cost():
+    """#4's autograd Function at train_carbon_aware's attention call in
+    float32 (its forward the ``flash_attention.cu`` route, its backward
+    the plain version's autograd) against the plain route: the cost of a
+    forward + backward each way."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    _, B, S, _, N, K, H, dt, _ = EX_TRAIN_CASE
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(s, generator=g, device="cuda", dtype=dt)
+               .requires_grad_() for s in ((B, S, N, H), (B, S, K, H),
+                                           (B, S, K, H)))
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
+              length=None, scale=None)
+    function_grads(
+        "#4 FlashAttention, train_carbon_aware layer (4 x 128, 8 / 4 heads "
+        "of 64, float32)",
+        lambda *x: (fa_ops.FlashAttention.apply(
+            *x, fa_kernel.flash_attention_cuda, kw),),
+        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
+        lambda: (q, k, v), (q, k, v))
+
+
+def phase_examples(card):
+    """The five examples of ``examples_torch/`` on the card, in-process,
+    each with the counters at 0 just before it: quickstart, fleet_week,
+    serve_shaped, train_carbon_aware and scenario_sweep's default mode at
+    the originals' defaults; scenario_sweep's --risk, --spatial,
+    --telemetry --trace and --sharded at SWEEP_SHORT. Exact launches of
+    #1 to #5 (and #3's and #4's routes) each; every printed number finite,
+    flex<24h% in [0, 100], the trace read back, Fig 12's counts the numpy
+    draws, the loss falling (the example raises otherwise); Fig 12 on the
+    card against the CPU; #4 at serve_shaped's calls (``EX_SERVE_CASES``)
+    and at train_carbon_aware's float32 call against its plain version and
+    SDPA, and its Function's cost (#3 at the --spatial sweep's shape is
+    held in ``phase_joint_s``). Returns each example's launches of #1 to
+    #5 and #3's and #4's routes, by label, and #4's records by case."""
+    import shutil
+
+    from repro_torch import sim
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import CarbonGate
+    t_phase = time.perf_counter()
+    launched, routes, walls = {}, {}, {}
+
+    def record(label, res):
+        out, walls[label], launched[label], routes[label] = res
+        return out
+
+    no_flash = dict.fromkeys(fa_kernel.SOURCES, 0)
+    out = record("quickstart", run_example(
+        "quickstart", "quickstart", [], [SOLVE_ROUNDS, 0, 0, 0, 0]))
+    all_finite("quickstart", [v for h in out["hours"] for v in h[1:]]
+               + [out["corr"], out["served"], out["arrived"]])
+
+    week_days, week_n = 7, 16
+    out = record("fleet_week", run_example(
+        "fleet_week", "fleet_week", [],
+        [2 * week_days * SOLVE_ROUNDS, 0, 0, 0, 0]))
+    (_, drop, derived), = out["fig12"]
+    want = fig12_draws(week_n, week_days)
+    print(f"[examples] fleet_week: Fig 12 drop {drop:.4f}% ({derived}); "
+          f"treated / control cluster-days of the numpy draws {want}",
+          flush=True)
+    if f"n=({want[0]},{want[1]})" not in derived:
+        raise AssertionError(f"[examples] fleet_week: Fig 12 counts "
+                             f"{derived}, the draws give {want}")
+    all_finite("fleet_week", [drop, out["slo_violation_rate"]] + [
+        v for d in out["week"] for v in (d["served"], d["carbon"],
+                                         d["queue"])])
+
+    out = record("scenario_sweep", run_example(
+        "scenario_sweep (default library, 14 days x 4 seeds)",
+        "scenario_sweep", [], [14 * SOLVE_ROUNDS, 0, 0, 0, 0]))
+    check_sweep_rows("scenario_sweep", out["rows"])
+    short = SWEEP_DAYS * SOLVE_ROUNDS
+    out = record("scenario_sweep --risk", run_example(
+        "scenario_sweep --risk", "scenario_sweep",
+        ["--risk"] + SWEEP_SHORT, [short, 2 * short, 0, 0, 0]))
+    check_sweep_rows("scenario_sweep --risk", out["rows"])
+    steps = SWEEP_DAYS * JOINT_ROUNDS * JOINT_STEPS
+    out = record("scenario_sweep --spatial", run_example(
+        "scenario_sweep --spatial", "scenario_sweep",
+        ["--spatial"] + SWEEP_SHORT, [2 * short, 0, steps, 0, 0],
+        {"joint_step": {"fused": steps, "split": 0}}))
+    check_sweep_rows("scenario_sweep --spatial", out["rows"])
+    if len(out["rows"]) * SWEEP_SEEDS != SPATIAL_EXAMPLE_SHAPE[0]:
+        raise AssertionError("[examples] the --spatial sweep's rollouts are "
+                             "not SPATIAL_EXAMPLE_SHAPE's, at which "
+                             "phase_joint_s holds #3")
+    trace = ROOT / EXAMPLE_TRACE
+    trace.parent.mkdir(exist_ok=True)
+    tel = record("scenario_sweep --telemetry", run_example(
+        "scenario_sweep --telemetry --trace", "scenario_sweep",
+        ["--telemetry", "--trace", str(trace)] + SWEEP_SHORT,
+        [short, 0, 0, 0, 0]))
+    check_sweep_rows("scenario_sweep --telemetry", tel["rows"])
+    for r in tel["telemetry_rows"]:
+        all_finite(f"telemetry {r['scenario']}",
+                   [v for v in r.values() if isinstance(v, float)])
+    back = sim.read_jsonl(trace)
+    names = [s.name for s in sim.default_library(SWEEP_DAYS)]
+    print(f"[examples] scenario_sweep --telemetry: {len(back)} trace records "
+          f"read back from {EXAMPLE_TRACE} (expected {len(names)} scenarios "
+          f"x {SWEEP_SEEDS} seeds x {SWEEP_DAYS} days)", flush=True)
+    if len(back) != len(names) * SWEEP_SEEDS * SWEEP_DAYS \
+            or [r["scenario"] for r in back] \
+            != [r["scenario"] for r in tel["records"]]:
+        raise AssertionError("[examples] the trace did not read back")
+    out = record("scenario_sweep --sharded", run_example(
+        "scenario_sweep --sharded", "scenario_sweep",
+        ["--sharded"] + SWEEP_SHORT, [short, 0, 0, 0, 0]))
+    # the same batch: sharded == unsharded and telemetry on == off, both
+    # bit for bit, so the two tables are equal
+    if out["rows"] != tel["rows"]:
+        raise AssertionError("[examples] the sharded sweep's table differs "
+                             "from the telemetry run's")
+    print("[examples] scenario_sweep --sharded: its table equals the "
+          "telemetry run's (same batch)", flush=True)
+
+    rounds, layers, gen = 4, 2, 16
+    res = record("serve_shaped", run_example(
+        "serve_shaped", "serve_shaped", [],
+        [0, 0, 0, rounds * layers * (1 + gen), 0],
+        {"flash_attention": {**no_flash, "flash_prefill": rounds * layers,
+                             "flash_decode": rounds * layers * gen}}))
+    gate = CarbonGate()
+    if res.batches != [gate.admitted(r, 4) for r in range(rounds)]:
+        raise AssertionError(f"[examples] serve_shaped: batches "
+                             f"{res.batches}")
+    all_finite("serve_shaped", res.prefill_ms + res.decode_ms)
+
+    flash_ex = {case[0]: flash_case(card, *case)
+                for case in EX_SERVE_CASES + [EX_TRAIN_CASE]}
+    train_example_function_cost()
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    n_f32 = EX_TRAIN_STEPS * EX_TRAIN_LAYERS
+    try:
+        losses = record("train_carbon_aware", run_example(
+            "train_carbon_aware", "train_carbon_aware",
+            ["--ckpt-dir", str(EXAMPLE_CKPT)], [0, 0, 0, n_f32, 0],
+            {"flash_attention": {**no_flash, "flash_attention": n_f32}}))
+    finally:
+        shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    all_finite("train_carbon_aware", losses)
+    wall = walls["train_carbon_aware"]
+    train_ms = flash_ex[EX_TRAIN_CASE[0]]["ms"]
+    print(f"[examples] train_carbon_aware: {len(losses)} logged losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {EX_TRAIN_STEPS} steps in "
+          f"{wall:.2f} s ({1e3 * wall / EX_TRAIN_STEPS:.1f} ms a step with "
+          f"its checkpoints); #4 {EX_TRAIN_LAYERS} launches a step on "
+          f"flash_attention.cu, {train_ms:.4f} ms each "
+          f"({EX_TRAIN_LAYERS * train_ms:.2f} ms a step)", flush=True)
+    fig12_card_vs_cpu()
+    print(f"[examples] wall seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched, routes, flash_ex
+
+
 def phase_serve_golden(gen=4):
     """The serving smoke configs in float32: the same weights on the card
     (kernels) and on the CPU (plain versions), logits of the prefill and
@@ -3552,11 +3871,28 @@ def main():
         records[4]["launches_by_route"], gla_serve, fa_serve = phase_serve()
     # #4 and #5 run on two paths, each counted from 0: serving and training
     training, gla_train, fa_train = phase_train()
+    # the examples, each counted from 0: #1 to #4 by example (and #3's
+    # and #4's routes); #4's examples' launches join its serve and train
+    ex_launched, ex_routes, flash_ex = phase_examples(card)
+    for i, rec in enumerate(records[:4]):
+        rec["launches_by_example"] = {k: c[i] for k, c in ex_launched.items()
+                                      if c[i]}
+    records[2]["launches_by_example_route"] = {
+        k: r["joint_step"] for k, r in ex_routes.items()
+        if ex_launched[k][2]}
+    records[3]["launches_by_example_route"] = {
+        k: r["flash_attention"] for k, r in ex_routes.items()
+        if ex_launched[k][3]}
+    for label, rec in flash_ex.items():
+        records[3]["by_case"][label] = {k: rec[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}
+    examples = [sum(c[i] for c in ex_launched.values()) for i in (3, 4)]
     records[3]["launches_by_path_model"] = {"serve": fa_serve,
                                             "train": fa_train}
-    for rec, s, t in zip(records[3:5], serving, training):
-        rec["launches"] = s + t
-        rec["launches_by_path"] = {"serve": s, "train": t}
+    for rec, s, t, e in zip(records[3:5], serving, training, examples):
+        rec["launches"] = s + t + e
+        rec["launches_by_path"] = {"serve": s, "train": t, "examples": e}
     records[4]["launches_by_path_model_route"] = {"serve": gla_serve,
                                                   "train": gla_train}
     vec = {path: sum(r.get("gla_vec", 0) for r in by_model.values())

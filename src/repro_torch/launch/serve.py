@@ -139,10 +139,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     args = ap.parse_args(argv)
-    serve(args.arch, smoke=args.smoke, batch=args.batch,
-          prompt_len=args.prompt_len, gen=args.gen, rounds=args.rounds,
-          carbon_aware=args.carbon_aware, device=args.device,
-          seed=args.seed)
+    return serve(args.arch, smoke=args.smoke, batch=args.batch,
+                 prompt_len=args.prompt_len, gen=args.gen,
+                 rounds=args.rounds, carbon_aware=args.carbon_aware,
+                 device=args.device, seed=args.seed)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """``build_model``: the counterpart of ``repro.models.model.build_model``
 for every family (dense, MoE with or without MLA, VLM, hybrid, RWKV6's
-ssm and the encoder-decoder). The reference's ``param_specs``,
-``cache_specs``, ``batch_specs`` and ``input_specs`` are
-``jax.eval_shape`` dry-run helpers and have no counterpart (ROADMAP.md:
-out of scope on one card).
+ssm and the encoder-decoder). The reference's ``cache_specs``,
+``batch_specs`` and ``input_specs`` are ``jax.eval_shape`` dry-run helpers
+and have no counterpart (ROADMAP.md: out of scope on one card);
+``param_count`` gives the parameter count its examples take from
+``param_specs``.
 
 ``stub_inputs`` and ``prompt_start`` are what the reference's launchers
 feed the two families with a stub frontend and where their decode
@@ -38,6 +39,14 @@ def build_model(cfg, device=None, *, seed: int = 0, generator=None):
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     return _MODELS[cfg.family](cfg, generator=generator, device=dev)
+
+
+def param_count(cfg) -> int:
+    """The number of parameters of ``cfg``'s model, which is the reference's
+    ``param_specs`` count. The model is built on the meta device: no memory
+    is allocated and no weight is drawn."""
+    model = build_model(cfg, "meta", generator=torch.Generator())
+    return sum(p.numel() for p in model.parameters())
 
 
 def stub_inputs(cfg, batch: int, device) -> dict:

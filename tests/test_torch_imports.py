@@ -1,18 +1,25 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not the
-root ``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch/``, not the root
+``chip_smoke.py`` and no example of ``examples_torch/`` imports JAX or the
+JAX package ``repro``; the examples import nothing of ``benchmarks``
+either."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
+# the port's modules, relative to src/
+SRC_NAMES = {str(p.relative_to(ROOT / "src")) for p in SOURCES
+             if p.is_relative_to(ROOT / "src")}
 
 
-def _forbidden(name: str) -> bool:
+def _forbidden(name: str, example: bool = False) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro") + (
+        ("benchmarks",) if example else ())
 
 
 def imported_modules(path: Path):
@@ -27,11 +34,10 @@ def imported_modules(path: Path):
 
 def test_sources_found():
     assert len(SOURCES) >= 20
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
     # the risk-aware joint slice's modules are among them
     assert {"repro_torch/core/risk.py", "repro_torch/core/spatial.py",
             "repro_torch/core/solver.py", "repro_torch/sim/report.py",
-            "repro_torch/kernels/vcc_pgd/kernel.py"} <= names
+            "repro_torch/kernels/vcc_pgd/kernel.py"} <= SRC_NAMES
 
 
 @pytest.mark.parametrize("name", ("pgd_epoch", "pgd_epoch_ens",
@@ -48,7 +54,6 @@ def test_every_kernel_source_is_in_the_package(name):
 
 def test_serving_slice_modules_are_scanned():
     """The serving slice's subpackages are among the scanned sources."""
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
     assert {"repro_torch/configs/__init__.py",
             "repro_torch/configs/base.py",
             "repro_torch/configs/zamba2_7b.py",
@@ -63,35 +68,33 @@ def test_serving_slice_modules_are_scanned():
             "repro_torch/kernels/flash_attention/ref.py",
             "repro_torch/kernels/linear_scan/kernel.py",
             "repro_torch/kernels/linear_scan/ops.py",
-            "repro_torch/kernels/linear_scan/ref.py"} <= names
+            "repro_torch/kernels/linear_scan/ref.py"} <= SRC_NAMES
 
 
 def test_closed_loop_slice_modules_are_scanned():
     """The streaming prediction and MPC recourse modules are among the
     scanned sources."""
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
-    assert {"repro_torch/core/stats.py", "repro_torch/core/mpc.py"} <= names
+    assert {"repro_torch/core/stats.py",
+            "repro_torch/core/mpc.py"} <= SRC_NAMES
 
 
 def test_telemetry_and_fleet_modules_are_scanned():
     """The telemetry layer and the legacy fleet API are among the scanned
     sources."""
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
     assert {"repro_torch/sim/telemetry.py",
-            "repro_torch/core/fleet.py"} <= names
+            "repro_torch/core/fleet.py"} <= SRC_NAMES
 
 
 def test_training_slice_modules_are_scanned():
     """The trainer's modules (data, optimizer, compression, checkpoints,
     the train step and the launcher) are among the scanned sources."""
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
     assert {"repro_torch/data/__init__.py", "repro_torch/data/pipeline.py",
             "repro_torch/optim/__init__.py", "repro_torch/optim/adamw.py",
             "repro_torch/optim/compression.py",
             "repro_torch/checkpoint/__init__.py",
             "repro_torch/checkpoint/checkpoint.py",
             "repro_torch/launch/train.py",
-            "repro_torch/training.py"} <= names
+            "repro_torch/training.py"} <= SRC_NAMES
 
 
 def test_core_rest_sharding_and_rwkv_modules_are_scanned():
@@ -99,14 +102,13 @@ def test_core_rest_sharding_and_rwkv_modules_are_scanned():
     carbon, power and SLO helpers, the softmax peak, the batched solves),
     the sharded rollout and the RWKV6 family are among the scanned
     sources."""
-    names = {str(p.relative_to(ROOT / "src")) for p in SOURCES[:-1]}
     assert {"repro_torch/core/forecast.py", "repro_torch/core/carbon.py",
             "repro_torch/core/power.py", "repro_torch/core/slo.py",
             "repro_torch/core/solver.py", "repro_torch/core/spatial.py",
             "repro_torch/core/vcc.py", "repro_torch/sim/engine.py",
             "repro_torch/models/layers.py", "repro_torch/models/ssm.py",
             "repro_torch/models/transformer.py",
-            "repro_torch/models/model.py"} <= names
+            "repro_torch/models/model.py"} <= SRC_NAMES
 
 
 @pytest.mark.parametrize("module,source", (
@@ -134,8 +136,19 @@ def test_slice_kernel_sources_are_in_the_package(module, source):
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_or_reference_imports(path):
-    bad = [m for m in imported_modules(path) if _forbidden(m)]
+    example = path in EXAMPLES
+    bad = [m for m in imported_modules(path) if _forbidden(m, example)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_examples_are_scanned():
+    """The five examples' counterparts are among the scanned sources, and
+    ``benchmarks`` is forbidden in them."""
+    assert {p.name for p in EXAMPLES} >= {
+        "quickstart.py", "fleet_week.py", "scenario_sweep.py",
+        "serve_shaped.py", "train_carbon_aware.py"}
+    assert _forbidden("benchmarks.fleet_bench", example=True)
+    assert not _forbidden("benchmarks.fleet_bench")
 
 
 def test_checker_catches_forbidden_imports():
