@@ -37,9 +37,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    DeepSeek-V2-236B's MLA prefill (128 heads at head dim 192, v's last 64
    columns zero as the model pads them, and the output's exact zeros
    there; in bf16 and float32), a
-   ragged length, and GQA, window and softcap cases, timed
+   ragged length, and GQA, window and softcap cases, the float32 prefill
+   route's own cases (B * N = 65,536, H = 256 with window and softcap at a
+   ragged 1,000 tokens, a chunked prefill, GQA, H = 33), timed
    beside ``scaled_dot_product_attention``, with each call's route (and
-   key splits for decode), TFLOP/s and share of the bound; at the seven
+   key splits for decode), TFLOP/s and share of the bound (for the float32
+   prefill route also its split-TF32 ceiling); at the seven
    bf16 serving calls, how the route rounds P (against the reference and
    against float32 attention, the TPU kernel's arithmetic); the decode
    route's float32 split partials against ``ref.attention_partials``;
@@ -209,6 +212,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 BF16_TENSOR_PER_S = 989e12           # H100 SXM dense bf16 tensor rate
+TF32_TENSOR_PER_S = 495e12           # H100 SXM dense TF32 tensor rate
 KERNEL_TOL = 1e-4                    # max |kernel - plain| on delta
 JOINT_TOL = 1e-5                     # one joint step: d', and x max|g_s|
 SHIFT_TOL = 1e-5                     # s': x max|z|, plus the bracket width
@@ -868,9 +872,11 @@ def flash_cases():
     over them (no cache length), the two cross calls in float32 too;
     DeepSeek-V2-236B's expanded MLA prefill (128 heads, q and k of head
     dim 192, v zero past its 128 columns: ``MLA_V_DIM``), in float32 too
-    at a shorter sequence (the route of the float32 decode check). The
-    decode shapes run in float32
-    too: there the 2e-5 limit is far below the ~1e-3 that one key too many
+    at a shorter sequence (the route of the float32 decode check); and the
+    float32 prefill route's own cases (B * N = 65,536, H = 256 with window
+    and softcap, a chunked prefill, GQA, H = 33) and the float32 prefills
+    that ``[serve]``'s float32 checks run (DeepSeekMoE's and DeepSeek-V2's
+    at 2 x 1,023 tokens). The decode shapes run in float32 too: there the 2e-5 limit is far below the ~1e-3 that one key too many
     or too few (an off-by-one ``length`` or ``q_offset``) moves an output
     row by, which bfloat16's 2e-2 limit would let through."""
     B, P, M, pos = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, DECODE_POS
@@ -910,12 +916,36 @@ def flash_cases():
          dict(causal=True)),
         ("deepseek-v2 prefill float32 (MLA)", 2, 512, 512, 128, 128, 192, f,
          dict(causal=True)),
+        # the float32 prefill route's own cases (flash_attention.cu): B * N
+        # past a grid axis's 65,535 blocks, Gemma2's widths with window and
+        # softcap at a ragged 1,000 tokens, Zamba2's chunked prefill (200
+        # queries at 700..899 over a cache filled to 900), Qwen3's GQA, and
+        # an unaligned head dim (element loads)
+        ("many heads prefill float32 (B*N 65,536)", 1024, 24, 24, 64, 64, 16,
+         f, dict(causal=True)),
+        ("gemma2 prefill float32 window + softcap", 1, 1000, 1000, 16, 8,
+         256, f, dict(causal=True, window=512, softcap=50.0)),
+        ("zamba2 chunked prefill float32", 2, 200, M, 32, 32, 112, f,
+         dict(causal=True, q_offset=700, length=900)),
+        ("qwen3 prefill float32 (GQA)", 1, 512, 512, 16, 8, 128, f,
+         dict(causal=True)),
+        ("H=33 prefill float32", 2, 130, 130, 4, 4, 33, f,
+         dict(causal=True)),
+        # the float32 prefills that [serve]'s float32 checks run at full
+        # width (moe_float32_checks): 2 x 1,023 tokens, a ragged last
+        # query tile, on DeepSeekMoE's heads and DeepSeek-V2's MLA heads
+        # (the HMAX = 192 instance)
+        ("deepseek-moe prefill float32 (served)", 2, P - 1, P - 1, 16, 16,
+         128, f, dict(causal=True)),
+        ("deepseek-v2 prefill float32 (MLA, served)", 2, P - 1, P - 1, 128,
+         128, 192, f, dict(causal=True)),
     ]
 
 
 # the MLA cases' v head dim: v is zero-padded from it to q's 192 columns
 MLA_V_DIM = {"deepseek-v2 prefill (MLA)": 128,
-             "deepseek-v2 prefill float32 (MLA)": 128}
+             "deepseek-v2 prefill float32 (MLA)": 128,
+             "deepseek-v2 prefill float32 (MLA, served)": 128}
 
 
 def sdpa_call(q, k, v, mask):
@@ -985,6 +1015,18 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
         splits = fa_kernel.decode_splits(B, K, N // K * Sq, end - begin,
                                          card.sms)
         route += f" (splits {splits})"
+    split, ceiling = "", {}
+    if route == "flash_attention":
+        # the route's own ceiling: three TF32 products per product
+        split_ops_ms = 1e3 * 3 * flops / TF32_TENSOR_PER_S
+        split_ms = max(bytes_ms, split_ops_ms)
+        ceiling = {"ceiling_ms": split_ms, "ceiling_by": (
+            "split-TF32 operations" if split_ops_ms >= bytes_ms
+            else "bytes")}
+        split = (f"; split-TF32 ceiling {split_ms:.4f} ms (max(bytes / "
+                 f"3.35 TB/s, 3 x ops / 495 TFLOP/s TF32), "
+                 f"{100 * split_ms / ms:.1f}% of it; the share above is of "
+                 f"the FP32 bound)")
     print(f"[kernel] flash_attention {label}: B={B} Sq={Sq} Sk={Sk} "
           f"N={N} K={K} H={H} {str(dt)[6:]} {mask}: route {route}; "
           f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
@@ -996,7 +1038,7 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
              f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x")
           + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
           f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
-          f"{bytes_ms:.4f} ms)", flush=True)
+          f"{bytes_ms:.4f} ms){split}", flush=True)
     if not err <= tol:
         raise AssertionError(f"flash attention disagrees with plain: "
                              f"{label}, {err:.3e}")
@@ -1015,9 +1057,18 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
         "sources": FLASH_SOURCES,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+        **ceiling}
     del q, k, v, got, want
     return rec
+
+
+def case_row(rec):
+    """A ``flash_case`` record as #4's ``by_case`` keeps it: its times and
+    bound, and on the float32 prefill route its split-TF32 ceiling."""
+    return {k: rec[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "ceiling_ms", "ceiling_by") if k in rec}
 
 
 def phase_flash_kernel(card):
@@ -1028,9 +1079,7 @@ def phase_flash_kernel(card):
     flash_partials_check()
     rec = records["zamba2 prefill"]
     rec["decode_ms"] = records["zamba2 decode"]["ms"]
-    rec["by_case"] = {label: {k: r[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "max_abs_err")} for label, r in records.items()}
+    rec["by_case"] = {label: case_row(r) for label, r in records.items()}
     return rec
 
 
@@ -3884,9 +3933,7 @@ def main():
         k: r["flash_attention"] for k, r in ex_routes.items()
         if ex_launched[k][3]}
     for label, rec in flash_ex.items():
-        records[3]["by_case"][label] = {k: rec[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")}
+        records[3]["by_case"][label] = case_row(rec)
     examples = [sum(c[i] for c in ex_launched.values()) for i in (3, 4)]
     records[3]["launches_by_path_model"] = {"serve": fa_serve,
                                             "train": fa_train}

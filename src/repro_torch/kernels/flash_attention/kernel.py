@@ -11,9 +11,12 @@ replace ``src/repro/kernels/flash_attention/kernel.py:85``
   the cached keys over many blocks, then a combine kernel;
 * ``Sq > 16``, bf16: ``flash_prefill.cu``, FlashAttention-2 tiles on the
   tensor cores (``mma.sync``);
-* ``Sq > 16``, float32: ``flash_attention.cu``, the first port's kernel on
-  the CUDA cores, kept because TF32 tensor cores would miss float32's 2e-5
-  limit.
+* ``Sq > 16``, float32: ``flash_attention.cu``, FlashAttention-2 tiles on
+  the tensor cores in split TF32 (``mma.sync`` tf32, each float32 operand
+  split into hi + lo TF32 parts and each product taken as lo.hi + hi.lo +
+  hi.hi): one TF32 product would miss float32's 2e-5 limit, the split keeps
+  about 21 mantissa bits (``tests/test_torch_flash_f32_split.py`` models
+  it).
 
 How the bf16 routes round P (the probabilities before P V). The TPU kernel
 (``src/repro/kernels/flash_attention/kernel.py:54-82``) casts q, k and v to
@@ -142,9 +145,6 @@ def _checked(q, k, v, length, window):
     if not (1 <= H <= MAX_HEAD_DIM and N % K == 0):
         raise ValueError(f"the kernel takes H <= {MAX_HEAD_DIM} and "
                          f"N % K == 0 (H={H}, N={N}, K={K})")
-    if route(Sq, q.dtype) == "flash_attention" and B * N >= 65536:
-        raise ValueError(f"the float32 prefill kernel takes B * N < 65536 "
-                         f"(B={B}, N={N})")
     kv_len = Sk if length is None else int(length)
     if not 0 <= kv_len <= Sk:
         raise ValueError(f"length {kv_len} outside [0, {Sk}]")

@@ -541,6 +541,16 @@ FLASH_CASES = [
     # route
     (4, 1024, 1024, 128, 128, 192, True, None, None, 0, None, torch.bfloat16),
     (1, 300, 300, 16, 16, 192, True, None, None, 0, None, torch.float32),
+    # the float32 prefill route's tiles: B * N = 65,536 (a one-dimensional
+    # grid), H = 256 with window and softcap over many key tiles, a ragged
+    # Sq, a chunked prefill (q_offset and length), GQA, H = 33 (element
+    # loads, k-steps past H zero)
+    (1024, 24, 24, 64, 64, 16, True, None, None, 0, None, torch.float32),
+    (1, 300, 300, 4, 2, 256, True, 100, 50.0, 0, None, torch.float32),
+    (1, 333, 333, 4, 4, 112, True, None, None, 0, None, torch.float32),
+    (2, 90, 300, 4, 2, 64, True, None, None, 150, 240, torch.float32),
+    (1, 256, 256, 16, 8, 128, True, None, None, 0, None, torch.float32),
+    (2, 70, 70, 4, 2, 33, True, None, None, 0, None, torch.float32),
 ]
 
 
