@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--gla-parent DIR]
 
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
@@ -51,8 +51,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    and in RWKV6-7B's per-channel and bonus + strict modes (at a batch of
    2, at decays of -30 a step and more, at a ragged 1,000 tokens, and at
    its serving prefill's 4 x 1,024 tokens), each line naming its route;
-   at the serving prefill's shape the CUDA-core source ``gla_scan.cu``
-   timed too, on the same inputs, beside the route's time;
+   at the serving prefill's shape the split-TF32 source ``gla_scan.cu``
+   timed too, on the same inputs, beside the route's time; and that
+   route's own cases (RWKV6-7B in float32 at 2 x 1,024 from a state, the
+   same at decays of -30 a step, odd widths K = 24, V = 40 over 1,000
+   tokens, a bf16 scalar decay with the bonus in the strict mode, a float32
+   token from a state) with their split-TF32 ceilings; ``--gla-parent DIR``
+   times an earlier ``gla_scan.cu`` (the parent commit's) in turns with
+   each of them;
 4. main path: ``sim.rollout_batch`` over ``default_library(7)`` x seeds 0-3
    for 7 days at 512 clusters, 64 campuses, 16 zones on the card, with the
    kernel launch counts, finiteness, and conservation and bounds of every
@@ -183,11 +189,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    and the serving smoke configs (Zamba2, Qwen3, RWKV6, DeepSeekMoE,
    InternVL2, Whisper and DeepSeek-V2) in
    float32, cuda against cpu (logits of prefill and 4 decode steps, greedy
-   tokens);
+   tokens; #5's calls by route, all on ``gla_scan``);
 8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model
    and its times at every case, #5's launches by path, model and
-   route among their keys; its RWKV6 route ``gla_vec`` also as a record of
-   its own, with ``gla_scan.cu``'s time beside it), the ``nvidia-smi``
+   route among their keys (``serve_golden``'s float32 calls too) and its
+   times at every case in ``by_case`` (on ``gla_scan`` with the split-TF32
+   ceiling, and the parent's time given ``--gla-parent``); its RWKV6 route
+   ``gla_vec`` also as a record of its own, with ``gla_scan.cu``'s time
+   beside it), the ``nvidia-smi``
    line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1155,7 +1164,13 @@ def gla_cases():
     mode from a state, the same at log decays of -30 a step and below
     (``strong``), at a ragged 1,000 tokens, and at its serving prefill's
     shape (the batch of 4 x 1,024 tokens a layer of the serving path
-    scans, from no state)."""
+    scans, from no state). Then the split-TF32 route's own cases
+    (``gla_scan.cu``): RWKV6-7B in float32 at 2 x 1,024 with its bonus in
+    the strict mode from a state, the same at decays of -30 a step, odd
+    widths (K = 24, V = 40) over a ragged 1,000 tokens, a bf16 scalar
+    decay with the bonus in the strict mode (``scalar+bs``: Zamba2's
+    shape, which no model sends, the bf16 tensor-core routes refuse it)
+    and a float32 one-token scan from a state."""
     B, P = SERVE_BATCH, SERVE_PROMPT
     bf, f = torch.bfloat16, torch.float32
     return [
@@ -1171,13 +1186,21 @@ def gla_cases():
         ("rwkv6 strong decay", 2, P, 64, 64, 64, bf, "strong", 64, True),
         ("rwkv6 ragged", B, 1000, 64, 64, 64, bf, "rwkv", 64, True),
         (RWKV_SERVE_CASE, B, P, 64, 64, 64, bf, "rwkv", 64, False),
+        ("rwkv6 float32", 2, P, 64, 64, 64, f, "rwkv", 64, True),
+        ("rwkv6 float32 strong decay", 2, P, 64, 64, 64, f, "strong", 64,
+         True),
+        ("float32 odd widths", 2, 1000, 64, 24, 40, f, "rwkv", 64, True),
+        ("zamba2 bf16 bonus + strict", B, P, 112, 64, 64, bf, "scalar+bs",
+         256, True),
+        ("zamba2 float32 one token", 1, 1, 112, 64, 64, f, "scalar", 256,
+         True),
     ]
 
 
 def gla_mode(mode):
     """(per-channel decay, bonus, strict) of a ``gla_cases`` mode."""
-    return mode != "scalar", mode in ("rwkv", "strong"), \
-        mode in ("rwkv", "strong")
+    bs = mode in ("rwkv", "strong", "scalar+bs")
+    return mode not in ("scalar", "scalar+bs"), bs, bs
 
 
 def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
@@ -1186,9 +1209,10 @@ def gla_inputs(B, S, H, K, V, dt, mode, init, dev, seed):
     def n(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    if mode == "scalar":     # Mamba2: B, C shared by the heads (stride 0)
+    if not gla_mode(mode)[0]:  # Mamba2: B, C shared by the heads (stride 0)
         q, k = (n(B, S, 1, K).to(dt).expand(B, S, H, K) for _ in range(2))
-        ld, u = -0.7 * n(B, S, H).abs(), None
+        ld = -0.7 * n(B, S, H).abs()
+        u = n(H, K) if gla_mode(mode)[1] else None
     else:
         q, k = n(B, S, H, K).to(dt), n(B, S, H, K).to(dt)
         ld = -(30.0 + n(B, S, H, K).abs()) if mode == "strong" else \
@@ -1203,21 +1227,60 @@ GLA_SOURCES = [f"src/repro_torch/kernels/linear_scan/csrc/{f}" for f in
                ("gla_ssd.cu", "gla_vec.cu", "gla_scan.cu")]
 GLA_ROUTE_NOTE = {"gla_ssd": "(64-row tiles, tensor cores)",
                   "gla_vec": "(64-row tiles in 16-row sub-blocks, tensor "
-                             "cores; 8-row triangles on the CUDA cores)"}
+                             "cores; 8-row triangles on the CUDA cores)",
+                  "gla_scan": "(64-row tiles, tensor cores in split TF32)"}
+# the entry point of gla_scan.cu before its split-TF32 redesign (the
+# CUDA-core kernel, which took the tile's rows as its last argument)
+PARENT_GLA_SIG = "p" * 8 + "i" * 21
 
 
-def phase_gla_kernel(card):
+def load_parent_scan(directory):
+    """The entry point of an earlier ``gla_scan.cu`` (one with the parent
+    commit's arguments) in ``directory``, built into ``build/``."""
+    from repro_torch.kernels import nvcc
+    lib = nvcc.build(Path(directory) / "gla_scan.cu")[0]
+    return nvcc.load(lib, "gla_scan_fwd", PARENT_GLA_SIG)
+
+
+def run_parent_scan(fn, q, k, v, ld, *, bonus=None, strict=False, chunk=64,
+                    initial_state=None):
+    """The earlier ``gla_scan.cu`` on the operands of ``run_source``, in
+    tiles of ``tile_rows(chunk)``. Returns (o, final_state)."""
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    st = [nvcc.lead_strides(n, x, d) for n, x, d in (
+        ("q", q, 4), ("k", k, 4), ("v", v, 4),
+        ("log_decay", ld, ld.dim()))]
+    o = torch.empty((B, S, H, V), dtype=q.dtype, device=q.device)
+    hT = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
+    nvcc.launch(fn, q.device, (
+        q, k, v, ld, bonus, initial_state, o, hT,
+        gla_kernel._DTYPES[q.dtype], B, S, H, K, V, *st[0], *st[1], *st[2],
+        *st[3], int(ld.dim() == 4), int(bool(strict)),
+        gla_kernel.tile_rows(chunk)), "parent gla_scan")
+    return o, hT
+
+
+def phase_gla_kernel(card, parent=None):
     """Kernel #5 against its plain version (both called directly on CUDA
     tensors). The state is float32 and held to 1e-4 of max|state|; so is
     a float32 output. A bf16 output rounds the same float32 sum on both
     sides, so it is held to 1e-4 of max|o| plus one bf16 unit in the last
-    place of the plain value. At RWKV6-7B's serving prefill the CUDA-core
+    place of the plain value. At RWKV6-7B's serving prefill the split-TF32
     source ``gla_scan.cu`` runs on the same inputs too (``run_source``),
-    held to the same limits and timed in turns with the route."""
+    held to the same limits and timed in turns with the route. Each case
+    on ``gla_scan.cu`` also gets its split-TF32 ceiling and, given
+    ``parent`` (a directory holding an earlier ``gla_scan.cu``, e.g. the
+    parent commit's), that source's time in turns on the same inputs.
+    Returns #5's record (every case's numbers in ``by_case``) and its RWKV6
+    route's."""
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.kernels.linear_scan import ref as gla_ref
     dev = torch.device("cuda")
     records = {}
+    parent_fn = None if parent is None else load_parent_scan(parent)
     for i, (label, B, S, H, K, V, dt, mode, chunk, init) in enumerate(
             gla_cases()):
         q, k, v, ld, u, h0 = gla_inputs(B, S, H, K, V, dt, mode, init, dev,
@@ -1233,6 +1296,9 @@ def phase_gla_kernel(card):
 
         def old():
             return gla_kernel.run_source("gla_scan", q, k, v, ld, **kw)
+
+        def prev():
+            return run_parent_scan(parent_fn, q, k, v, ld, **kw)
 
         before = dict(gla_kernel.gla_cuda.routes)
         o, hT = kern()
@@ -1262,11 +1328,13 @@ def phase_gla_kernel(card):
 
         err, s_err, ok = check(o, hT)
         ab = label == RWKV_SERVE_CASE and route != "gla_scan"
-        if ab:   # the CUDA-core source on the same call, timed in turns
-            old_err, old_s_err, old_ok = check(*old())
+        pab = parent_fn is not None and route == "gla_scan"
+        if ab or pab:   # another source on the same call, timed in turns
+            other = old if ab else prev
+            old_err, old_s_err, old_ok = check(*other())
             ms_list, old_list = [], []
             for r in range(2):
-                for fn, acc in ((kern, ms_list), (old, old_list))[::(
+                for fn, acc in ((kern, ms_list), (other, old_list))[::(
                         1 if r == 0 else -1)]:
                     acc.append(cuda_ms(fn, lead=True))
             ms, old_ms = statistics.fmean(ms_list), statistics.fmean(old_list)
@@ -1278,12 +1346,20 @@ def phase_gla_kernel(card):
         nbytes = gla_kernel.gla_bytes(q, k, v, ld, bonus=u,
                                       initial_state=h0)
         bound_ms, by, ops_ms, bytes_ms = card.bound(flops, nbytes, dt)
+        split, ceiling = "", {}
+        if route == "gla_scan":
+            # the route's own ceiling: three TF32 products per product
+            split_ops_ms = 1e3 * 3 * flops / TF32_TENSOR_PER_S
+            split_ms = max(bytes_ms, split_ops_ms)
+            ceiling = {"ceiling_ms": split_ms, "ceiling_by": (
+                "split-TF32 operations" if split_ops_ms >= bytes_ms
+                else "bytes")}
+            split = (f"; split-TF32 ceiling {split_ms:.4f} ms (max(bytes / "
+                     f"3.35 TB/s, 3 x ops / 495 TFLOP/s TF32), "
+                     f"{100 * split_ms / ms:.1f}% of it")
         print(f"[kernel] gla_scan {label}: B={B} S={S} H={H} K={K} V={V} "
               f"{str(dt)[6:]} {mode} chunk={chunk} initial state {init}: "
-              f"route {route} "
-              + GLA_ROUTE_NOTE.get(
-                  route, f"(tile {gla_kernel.tile_rows(chunk)}, CUDA cores)")
-              + ": "
+              f"route {route} " + GLA_ROUTE_NOTE[route] + ": "
               f"max|o kernel-plain|={err:.3e} of max|o| "
               f"{o_scale:.3e} (limit {GLA_RTOL:g} x max|o|"
               + (" + 1 bf16 ulp" if ulp else "") + "), max|state "
@@ -1291,19 +1367,21 @@ def phase_gla_kernel(card):
               f"{GLA_RTOL:g} x); kernel {ms:.4f} ms (device), plain "
               f"{plain_ms:.4f} ms, library none (no single call); bound "
               f"{bound_ms:.4f} ms by {by} (matmul flops {flops:.4g} -> "
-              f"{ops_ms:.4f} ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms)",
-              flush=True)
-        if ab:
+              f"{ops_ms:.4f} ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms)"
+              f"{split}", flush=True)
+        if ab or pab:
+            what = ("gla_scan.cu (split TF32)" if ab else
+                    f"the earlier gla_scan.cu in {parent} (tile "
+                    f"{gla_kernel.tile_rows(chunk)})")
             print(f"[kernel] gla_scan {label}: {route} {ms:.4f} ms "
-                  f"({[round(x, 4) for x in ms_list]}) against gla_scan.cu "
-                  f"(CUDA cores, tile {gla_kernel.tile_rows(chunk)}) "
+                  f"({[round(x, 4) for x in ms_list]}) against {what} "
                   f"{old_ms:.4f} ms ({[round(x, 4) for x in old_list]}), "
                   f"in turns on the same inputs: {old_ms / ms:.2f}x; "
                   f"bound {bound_ms:.4f} ms ({ms / bound_ms:.1f}x and "
                   f"{old_ms / bound_ms:.1f}x it), plain {plain_ms:.4f} ms; "
-                  f"gla_scan.cu max|o - plain| {old_err:.3e}, state "
+                  f"its max|o - plain| {old_err:.3e}, state "
                   f"{old_s_err:.3e}", flush=True)
-            if not old_ok:
+            if ab and not old_ok:
                 raise AssertionError("gla_scan.cu disagrees with plain at "
                                      f"{label}")
         if not ok:
@@ -1313,10 +1391,15 @@ def phase_gla_kernel(card):
             "source": f"src/repro_torch/kernels/linear_scan/csrc/{route}.cu",
             "sources": GLA_SOURCES, "gla_route": route,
             "replaces": "src/repro/kernels/linear_scan/kernel.py:71",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "state_err": s_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, **ceiling}
         if ab:
             records[label]["gla_scan_cu_ms"] = old_ms
+        elif route == "gla_scan":
+            records[label]["gla_scan_cu_ms"] = ms
+        if pab:
+            records[label]["parent_ms"] = old_ms
         del q, k, v, ld, o, wo
     rec = records["zamba2 mamba2 prefill"]
     vec_rec = dict(records[RWKV_SERVE_CASE], name="gla_vec",
@@ -1324,6 +1407,10 @@ def phase_gla_kernel(card):
     rec["rwkv6_serving"] = {k: vec_rec[k] for k in (
         "source", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "gla_scan_cu_ms")}
+    rec["by_case"] = {label: {k: r[k] for k in (
+        "gla_route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "state_err", "ceiling_ms", "ceiling_by", "gla_scan_cu_ms",
+        "parent_ms") if k in r} for label, r in records.items()}
     return rec, vec_rec
 
 
@@ -3687,12 +3774,17 @@ def phase_serve_golden(gen=4):
     """The serving smoke configs in float32: the same weights on the card
     (kernels) and on the CPU (plain versions), logits of the prefill and
     ``gen`` decode steps within 1e-4 of max|logit|, greedy tokens equal
-    wherever the CPU's top-2 margin exceeds that gap."""
+    wherever the CPU's top-2 margin exceeds that gap. Returns #5's calls
+    by model and route on the card, counted from 0 (float32: all on
+    ``gla_scan``; Zamba2 and RWKV6 must launch it)."""
     import copy
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
+    gla_kernel.gla_cuda.routes = dict.fromkeys(gla_kernel.SOURCES, 0)
+    gla_by_model = {}
     for arch in SERVE_ARCHS:
         cfg = get_arch(arch).smoke.replace(remat="none", dtype="float32")
         cpu = build_model(cfg, "cpu", seed=3)
@@ -3700,7 +3792,14 @@ def phase_serve_golden(gen=4):
         kw = dict(smoke=True, batch=4, prompt_len=40,
                   gen=gen, rounds=2, carbon_aware=True, keep_logits=True,
                   verbose=False)
+        before = dict(gla_kernel.gla_cuda.routes)
         got = serve(arch, device="cuda", model=gpu, **kw)
+        gla = {r: gla_kernel.gla_cuda.routes[r] - before[r] for r in before}
+        if any(gla.values()):
+            gla_by_model[arch] = gla
+        if any(n for r, n in gla.items() if r != "gla_scan") or (
+                arch in ("zamba2-7b", "rwkv6-7b") and not gla["gla_scan"]):
+            raise AssertionError(f"{arch}: float32 #5 calls by route {gla}")
         want = serve(arch, device="cpu", model=cpu, **kw)
         if got.batches != want.batches:
             raise AssertionError(f"{arch}: admitted {got.batches} on cuda, "
@@ -3728,8 +3827,10 @@ def phase_serve_golden(gen=4):
               f"(plain): admitted {got.batches}; largest logit gap "
               f"{worst:.3e} of max|logit| (limit 1e-4) over the prefill and "
               f"{gen} decode steps of each round; greedy tokens equal"
-              + (f" (a tie cut {ties} round short)" if ties else ""),
-              flush=True)
+              + (f" (a tie cut {ties} round short)" if ties else "")
+              + (f"; #5 calls by route {gla_by_model[arch]}"
+                 if arch in gla_by_model else ""), flush=True)
+    return gla_by_model
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3893,14 +3994,22 @@ def phase_cross_device(slice_path=False, closed_loop=False, telemetry=False):
           + f"; {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--gla-parent", metavar="DIR", default=None,
+                    help="a directory holding an earlier gla_scan.cu (the "
+                         "parent commit's), timed in turns with kernel "
+                         "#5's split-TF32 route at each of its cases")
+    args = ap.parse_args(argv)
     t0 = time.perf_counter()
     name, sms, clock_mhz = phase_device()
     card = Card(sms, clock_mhz)
     phase_build()
     joint, s_project = phase_joint_kernel(card)
     records = [phase_kernels(card), phase_ens_kernel(card), joint,
-               phase_flash_kernel(card), *phase_gla_kernel(card), s_project]
+               phase_flash_kernel(card),
+               *phase_gla_kernel(card, args.gla_parent), s_project]
     # #5's RWKV6 route (gla_vec.cu): a record of its own, moved last
     records.append(records.pop(5))
     records[0]["launches"] = phase_main_path()
@@ -3949,7 +4058,8 @@ def main():
     phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
     phase_cross_device(closed_loop=True, telemetry=True)
-    phase_serve_golden()
+    records[4]["launches_by_path_model_route"]["serve_golden"] = \
+        phase_serve_golden()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi("name,power.limit"))

@@ -1,10 +1,11 @@
 // Chunked gated linear attention for Hopper (sm_90a), the tensor-core route
 // for Mamba2's state-space duality (SSD) form: bf16 q, k and v, a scalar
 // decay per (batch, position, head), K and V in {16, 32, 48, 64}, no bonus,
-// not strict. Everything else (float32, RWKV6's per-channel decay and bonus,
-// the strict mode) stays on gla_scan.cu.
+// not strict. bf16 with RWKV6's per-channel decay goes to gla_vec.cu;
+// float32, other widths and a scalar decay with the bonus or the strict mode
+// to gla_scan.cu (the same tiles in split TF32).
 //
-// Replaces, with gla_scan.cu, the TPU kernel
+// Replaces, with gla_vec.cu and gla_scan.cu, the TPU kernel
 // src/repro/kernels/linear_scan/kernel.py, gla_pallas (body _gla_kernel), and
 // computes what ref.gla_chunked computes: the output and the float32 final
 // (K, V) state, from an optional initial state. A chunk is taken in tiles of

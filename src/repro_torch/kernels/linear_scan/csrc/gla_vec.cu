@@ -2,7 +2,9 @@
 // for RWKV6's per-channel decay: bf16 q, k and v, a float32 log decay per
 // (batch, position, head, key channel), an optional float32 bonus u (H, K),
 // the strict (h_{t-1}) or the inclusive mode, K and V in {16, 32, 48, 64}.
-// Mamba2's scalar decay stays on gla_ssd.cu, float32 on gla_scan.cu.
+// Mamba2's scalar decay goes to gla_ssd.cu; float32, other widths and a
+// bf16 scalar decay with the bonus or the strict mode to gla_scan.cu (the
+// same tiles in split TF32).
 //
 // Replaces, with gla_ssd.cu and gla_scan.cu, the TPU kernel
 // src/repro/kernels/linear_scan/kernel.py:71, gla_pallas (body _gla_kernel),
@@ -32,7 +34,8 @@
 //   puts rows 8-15 x columns 0-7 on the tensor cores too (the lower half of
 //   a 16 x 8 product whose upper rows are zero), so only its two 8-row
 //   triangles take the exact pairwise form, on the CUDA cores: 4 x 2 x 28 x
-//   K exponentials a tile where gla_scan.cu takes 64 x 63 / 2 x K. A warp
+//   K exponentials a tile where the whole tile's pairs take 64 x 63 / 2 x
+//   K (the first port's CUDA-core gla_scan.cu). A warp
 //   forms a diagonal sub-block with the key channels split over its lanes
 //   (two a lane), rows r and r + 8 at a time, summed over the lanes by a
 //   reduce-scatter of 16 shuffles. The bonus goes on A's diagonal: A[t, t]
@@ -72,7 +75,9 @@
 // per (batch, head), each forming A again (-DGLA_VSPLIT=2; still two blocks
 // an SM by shared memory, so 512 blocks take two waves) 0.5414 / 0.5371;
 // the next tile loaded after this tile's products (-DGLA_PREFETCH=0) 0.2232
-// / 0.2218; gla_scan.cu 2.1316 / 2.1306. By phase (-DGLA_CLOCKS), a tile
+// / 0.2218; the CUDA-core gla_scan.cu of the time 2.1316 / 2.1306 (its
+// split-TF32 redesign: 0.3869 in its own call). By phase (-DGLA_CLOCKS), a
+// tile
 // takes ~21,400 SM clocks with two blocks an SM: forming A ~15,800 (the
 // diagonal sub-blocks 7,100), the products ~5,000. Designs timed on the
 // way, then taken out of this source (PERF.md §6): the first version
@@ -84,7 +89,8 @@
 // 0.2159 against 0.2159 / 0.2155; cp.async loads (16-byte pieces, their
 // issue holding the warps ~3,000 clocks a tile) 0.2272 / 0.2277, and one
 // bulk copy a row (256 a tile through one TMA unit) 0.3231 / 0.3175, each
-// in its own call (gla_scan.cu within 0.5% across the calls); the middle
+// in its own call (the CUDA-core gla_scan.cu within 0.5% across the
+// calls); the middle
 // sub-blocks' q o e^{cum_q} and k o e^{cum_last - cum} from the pairs'
 // operands 0.2489 / 0.2440.
 #include <cuda.h>  // CUtensorMap (the encoder comes through the runtime)

@@ -16,9 +16,12 @@ and takes no initial one). ``gla_cuda`` picks one by the call (``route``):
   cores, only the diagonal sub-blocks' 8-row triangles pairwise on the
   CUDA cores;
 * everything else (float32, a scalar decay with the bonus or the strict
-  mode, other widths): ``gla_scan.cu``, the first port's kernel on the CUDA
-  cores. float32 stays there because a bf16 (or TF32) product of float32
-  operands would miss its 1e-4 limit.
+  mode, other widths up to 64): ``gla_scan.cu``, 64-row tiles on the tensor
+  cores in split TF32 (``mma.sync`` tf32 on a TF32 high part and the
+  residual of every float32 operand, three products each), which holds
+  float32's 1e-4 limit where one bf16 or TF32 product would miss it; a
+  tile's state contribution and output are summed from zero and merged by
+  an FMA, since the tensor cores' sums truncate.
 
 Each source is built and loaded through ``kernels/nvcc.py`` at first use;
 nothing is compiled when this module is imported. ``gla_cuda`` launches on
@@ -43,7 +46,7 @@ MAX_TILE = 64         # rows of a tile; longer chunks are taken in tiles
 SSD_DIMS = (16, 32, 48, 64)   # the K and V the tensor-core routes take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = nvcc.P, nvcc.I
-_ENTRY = {"gla_scan": ("gla_scan_fwd", _P * 8 + _I * 6 + _I * 12 + _I * 3),
+_ENTRY = {"gla_scan": ("gla_scan_fwd", _P * 8 + _I * 6 + _I * 12 + _I * 2),
           "gla_ssd": ("gla_ssd_fwd", _P * 7 + _I * 5 + _I * 12),
           "gla_vec": ("gla_vec_fwd", _P * 8 + _I * 5 + _I * 12 + _I)}
 _libs = {}
@@ -85,7 +88,9 @@ def route(dtype: torch.dtype, K: int, V: int, *, vec: bool = False,
 
 
 def tile_rows(chunk: int) -> int:
-    """Rows of the kernel's tile for a reference chunk size."""
+    """Rows of a tile of the reference's work for a chunk size (the chunk,
+    up to ``MAX_TILE``): ``gla_flops`` counts a tile's pairs by it. The
+    kernels take 64-row tiles whatever the chunk."""
     return max(1, min(int(chunk), MAX_TILE))
 
 
@@ -172,7 +177,7 @@ def run_source(name: str, q, k, v, log_decay, *, bonus=None,
         nvcc.launch(fn, q.device, (
             q, k, v, log_decay, bonus, initial_state, o, hT,
             _DTYPES[q.dtype], B, S, H, K, V, *sq, *sk, *sv, *sl, int(vec),
-            int(bool(strict)), tile_rows(chunk)), name)
+            int(bool(strict))), name)
     return o, hT
 
 

@@ -8,7 +8,8 @@ Both reduce to the chunked gated linear attention of
 ``exp(-exp(w0 + LoRA(x)))`` in float32, the bonus ``u`` on the current
 token and the strict mode (a token sees the state before its own update).
 A prefill runs the scan (kernel #5 on the card: ``gla_ssd.cu`` for bf16
-Mamba2, ``gla_vec.cu`` for bf16 RWKV6, ``gla_scan.cu`` in float32), a
+Mamba2, ``gla_vec.cu`` for bf16 RWKV6, ``gla_scan.cu``, split TF32 on the
+tensor cores, in float32), a
 decode step the plain ``gla_step``.
 """
 from __future__ import annotations

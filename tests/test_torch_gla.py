@@ -185,20 +185,27 @@ def _chip_smoke():
 def test_route_of_each_chip_smoke_case():
     """Mamba2's bf16 scans take the scalar-decay tensor-core source, RWKV6's
     bf16 scans (per-channel decay, with or without the bonus and the strict
-    mode) the per-channel one; float32 and K or V outside ``SSD_DIMS`` stay
-    on the CUDA-core one."""
+    mode) the per-channel one; float32, a bf16 scalar decay with the bonus
+    or the strict mode, and K or V outside ``SSD_DIMS`` the split-TF32 one
+    (its own cases among them)."""
     want = {"zamba2 mamba2 prefill": "gla_ssd", "zamba2 ragged": "gla_ssd",
             "zamba2 from a state": "gla_ssd",
             "zamba2 one token from a state": "gla_ssd",
             "zamba2 float32": "gla_scan", "rwkv6 vector decay": "gla_vec",
             "rwkv6 bonus + strict": "gla_vec",
             "rwkv6 strong decay": "gla_vec", "rwkv6 ragged": "gla_vec",
-            "rwkv6-7b serving prefill": "gla_vec"}
-    got = {label: kernel.route(dt, K, V, vec=mode != "scalar",
-                               bonus=mode in ("rwkv", "strong"),
-                               strict=mode in ("rwkv", "strong"))
-           for label, B, S, H, K, V, dt, mode, chunk, init
-           in _chip_smoke().gla_cases()}
+            "rwkv6-7b serving prefill": "gla_vec",
+            "rwkv6 float32": "gla_scan",
+            "rwkv6 float32 strong decay": "gla_scan",
+            "float32 odd widths": "gla_scan",
+            "zamba2 bf16 bonus + strict": "gla_scan",
+            "zamba2 float32 one token": "gla_scan"}
+    cs = _chip_smoke()
+    got = {}
+    for label, B, S, H, K, V, dt, mode, chunk, init in cs.gla_cases():
+        vec, bonus, strict = cs.gla_mode(mode)
+        got[label] = kernel.route(dt, K, V, vec=vec, bonus=bonus,
+                                  strict=strict)
     assert got == want
     assert kernel.route(torch.bfloat16, 64, 64) == "gla_ssd"
     for K, V in ((8, 64), (64, 40), (72, 64)):

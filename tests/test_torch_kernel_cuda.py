@@ -24,10 +24,13 @@ float32 split partials 2e-5 of max(1, max|plain|) against
 ``ref.attention_partials``. The GLA scan (#5):
 1e-4 of max|o| on the output and of max|state| on the final state against
 ``ref.gla_chunked`` (the kernel walks a chunk in tiles of up to 64 rows and
-sums in another order); its tensor-core routes (``csrc/gla_ssd.cu``, scalar
-decay, and ``csrc/gla_vec.cu``, per-channel decay) in bf16 to
-``chip_smoke.py``'s limit, 1e-4 of max|o| plus one bf16 unit in the last
-place of the plain value (both sides round a float32 sum to bf16).
+sums in another order); its bf16 tensor-core routes (``csrc/gla_ssd.cu``,
+scalar decay, and ``csrc/gla_vec.cu``, per-channel decay) and the bf16
+calls of its split-TF32 route (``csrc/gla_scan.cu``) to ``chip_smoke.py``'s
+limit, 1e-4 of max|o| plus one bf16 unit in the last place of the plain
+value (both sides round a float32 sum to bf16); the split-TF32 route's own
+cases (16 tiles of state, decays of -30 a step, odd widths, one token,
+element loads) in float32 to 1e-4 of max|o| and of max|state|.
 """
 import dataclasses
 
@@ -672,6 +675,90 @@ def test_gla_kernel_matches_plain_on_card(cuda_device, case):
     tol = 1e-4 if q.dtype == torch.float32 else 2e-2
     assert (o.float() - wo.float()).abs().max().item() <= \
         tol * wo.float().abs().max().item()
+    assert (hT - whT).abs().max().item() <= 1e-4 * whT.abs().max().item()
+
+
+# the split-TF32 route, csrc/gla_scan.cu: float32, a scalar decay with the
+# bonus or the strict mode, other widths
+GLA_SCAN_CASES = [
+    # B, S, H, K, V, decay, bonus, strict, initial state, decay scale,
+    # dtype, misaligned
+    (1, 1024, 4, 64, 64, "scalar", False, False, True, 0.7,
+     torch.float32, False),                  # 16 tiles of state, Mamba2
+    (2, 1024, 4, 64, 64, "vector", True, True, True, 3.0,
+     torch.float32, False),                  # 16 tiles of state, RWKV6
+    (2, 200, 3, 64, 64, "vector", True, True, True, 30.0,
+     torch.float32, False),                  # log_decay <= -30 a step
+    (2, 200, 3, 64, 64, "scalar", False, True, True, 30.0,
+     torch.float32, False),
+    (1, 1000, 2, 24, 40, "vector", True, True, True, 3.0,
+     torch.float32, False),                  # odd widths, ragged
+    (1, 1000, 2, 24, 40, "scalar", False, False, True, 0.7,
+     torch.float32, False),
+    (2, 1, 3, 64, 64, "vector", True, True, True, 3.0,
+     torch.float32, False),                  # one token from a state
+    (2, 1, 3, 64, 64, "scalar", False, False, True, 0.7,
+     torch.float32, False),
+    (1, 130, 3, 64, 32, "vector", True, False, True, 3.0,
+     torch.float32, True),                   # element loads
+    (1, 77, 2, 5, 3, "scalar", True, False, False, 0.7,
+     torch.float32, False),
+    (2, 300, 3, 64, 64, "scalar", True, True, True, 0.7,
+     torch.bfloat16, False),                 # bf16, scalar, bonus + strict
+    (2, 300, 3, 64, 64, "scalar", False, True, False, 0.7,
+     torch.bfloat16, False),
+    (2, 100, 3, 20, 36, "vector", True, True, True, 3.0,
+     torch.bfloat16, False),                 # bf16 at other widths
+]
+
+
+def _scan_inputs(case, device):
+    B, S, H, K, V, decay, bonus, strict, init, scale, dt, odd = case
+    g = torch.Generator().manual_seed(S * H + 3 * K + V)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g)
+
+    to = dict(device=device, dtype=dt)
+    if decay == "scalar":   # Mamba2's B and C: stride 0 over the heads
+        q, k = (n(B, S, 1, K).to(**to).expand(B, S, H, K) for _ in range(2))
+        shape = (B, S, H)
+    elif odd:               # q and k one element past a 16-byte boundary
+        q, k = (n(B, S, H, K + 1).to(**to)[..., 1:] for _ in range(2))
+        shape = (B, S, H, K)
+    else:
+        q, k = n(B, S, H, K).to(**to), n(B, S, H, K).to(**to)
+        shape = (B, S, H, K)
+    v = n(B, S, H, V).to(**to)
+    ld = -scale * n(*shape).abs() if scale < 10 else \
+        -(scale + n(*shape).abs())
+    u = n(H, K).to(device) if bonus else None
+    h0 = n(B, H, K, V).to(device) if init else None
+    return q, k, v, ld.to(device), u, h0, strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLA_SCAN_CASES)
+def test_gla_scan_route_matches_plain_on_card(cuda_device, case):
+    """Within 1e-4 of max|o| (plus one bf16 unit in the last place of a
+    bf16 output) and 1e-4 of max|state| of the plain version."""
+    q, k, v, ld, u, h0, strict = _scan_inputs(case, cuda_device)
+    K, V = q.shape[-1], v.shape[-1]
+    assert gla_kernel.route(q.dtype, K, V, vec=ld.dim() == 4,
+                            bonus=u is not None, strict=strict) == "gla_scan"
+    kw = dict(bonus=u, strict=strict, chunk=64, initial_state=h0)
+    before = dict(gla_kernel.gla_cuda.routes)
+    o, hT = gla_ops.gla(q, k, v, ld, **kw)
+    assert {r: gla_kernel.gla_cuda.routes[r] - before[r] for r in before} \
+        == {"gla_ssd": 0, "gla_vec": 0, "gla_scan": 1}
+    wo, whT = gla_ref.gla_chunked(q, k, v, ld, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and hT.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(hT).all()
+    ulp = 2.0 ** -7 if q.dtype == torch.bfloat16 else 0.0
+    err = (o.float() - wo.float()).abs()
+    limit = 1e-4 * wo.float().abs().max() + ulp * wo.float().abs()
+    assert (err <= limit).all(), err.max().item()
     assert (hT - whT).abs().max().item() <= 1e-4 * whT.abs().max().item()
 
 
