@@ -39,8 +39,15 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    there; in bf16 and float32), a
    ragged length, and GQA, window and softcap cases, the float32 prefill
    route's own cases (B * N = 65,536, H = 256 with window and softcap at a
-   ragged 1,000 tokens, a chunked prefill, GQA, H = 33), timed
-   beside ``scaled_dot_product_attention``, with each call's route (and
+   ragged 1,000 tokens, a chunked prefill, GQA, H = 33), Yi-6B's and
+   DeepSeek-67B's prefill and decode (8 query heads a KV head), Gemma2-9B's
+   served prefill over 4,608 tokens and a decode step past position 4,096
+   on a local layer (window 4,096) and a global one (the 1 << 30
+   sentinel), softcap 50, the decode steps in float32 too, timed
+   beside ``scaled_dot_product_attention`` (under a softcap beside
+   ``flex_attention`` compiled), the windowed bf16 prefills held row by
+   row at the window's edge against a window one key off, with each
+   call's route (and
    key splits for decode), TFLOP/s and share of the bound (for the float32
    prefill route also its split-TF32 ceiling); at the seven
    bf16 serving calls, how the route rounds P (against the reference and
@@ -115,9 +122,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    (random weights from a seed): ``launch.serve.serve`` of Zamba2-7B,
    Qwen3-0.6B, RWKV6-7B, DeepSeekMoE-16B, InternVL2-2B (after its 256
    zero vision embeddings), Whisper-base (prompts of 128 tokens on
-   1,500 zero frames) and DeepSeek-V2-236B (8 of its 60 layers: the
-   dense first layer and 7 MoE layers), 2 rounds of 4 prompts of 1,024
-   tokens and 32 decoded tokens each, with exact launch counts of #4
+   1,500 zero frames), DeepSeek-V2-236B (8 of its 60 layers: the
+   dense first layer and 7 MoE layers), Yi-6B, Gemma2-9B (prompts of
+   4,608 tokens: its 4,096-key window binds on its 21 local layers in the
+   prefill and at every decode step; how many queries and positions it
+   cuts printed) and DeepSeek-67B (32 of its 95 layers), 2 rounds of 4
+   prompts of 1,024 tokens and 32 decoded tokens each, with exact launch
+   counts of #4
    and #5 (and their calls by route: RWKV6's 64 scans all on ``gla_vec``;
    DeepSeekMoE's 56 prefill and 1,792 decode calls of #4, InternVL2's 48
    and 1,536, Whisper's 36 and 768, DeepSeek-V2's 16 and none: its
@@ -126,7 +137,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    decode step's logits against the prefill of the same tokens; one
    profiled Zamba2 prefill and one profiled RWKV6 prefill (the device's
    busy share and #5's share of it) and one profiled decode step of each,
-   and of InternVL2 and Whisper with #4's share;
+   and of InternVL2, Whisper and Gemma2 with #4's share;
    for DeepSeekMoE and DeepSeek-V2 the share of routed assignments each
    round's prefill dropped at the published capacity factor of 1.25, the
    same prefill twice bit for bit, the decode check at a capacity factor
@@ -159,11 +170,16 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    InternVL2-2B and Whisper-base at full width and depth (the stub's zero
    frames in each batch, seeded vision embeddings in place of the stub's
    zeros, whose gradients overflow at 24 layers),
+   Yi-6B at 8 of 32 layers, Gemma2-9B at 4 of 42 and DeepSeek-67B at 1
+   of 95 at their published widths,
    for 2 steps each, with exact launches of #4 and #5 (RWKV6's on
    ``gla_vec``; its step's parts and a profiled step after them), and
    #5's Function at RWKV6's training shape (bonus, strict) and #4's at
    Whisper's cross-attention (non-causal, 255 queries on 1,500 frames)
-   against the plain route; and
+   and at Gemma2's local layer (1 x 4,608, window 4,096, softcap 50)
+   against the plain route, each #4 case timed in turns with the
+   library's forward + backward (SDPA, or compiled flex_attention under
+   a softcap) and beside the bound of a forward + backward; and
    ``python -m repro_torch.launch.train
    --smoke`` killed at step 17 and resumed to 30 in subprocesses, every
    leaf of the final checkpoint against an uninterrupted run (bit for bit,
@@ -175,8 +191,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    days and 2 seeds; exact launches of #1 to #5 (#3's and #4's by route),
    finite output, the trace read back, Fig 12's counts the numpy draws,
    the loss falling; #4 at serve_shaped's prefill and decode calls and at
-   train_carbon_aware's float32 call against its plain version and SDPA
-   (#3 at the --spatial sweep's 8 x 8 is held in phase 3); Fig 12 on the
+   train_carbon_aware's float32 call against its plain version and SDPA,
+   its Function's forward + backward beside SDPA's (#3 at the --spatial sweep's 8 x 8 is held in phase 3); Fig 12 on the
    card against the CPU; each example's wall seconds;
 7. the golden configuration, the slice configuration at golden size and
    the streaming closed loop (``streaming=True, mpc=True``) at golden size
@@ -187,11 +203,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    at golden size the slice's best-of
    verdicts must agree on both devices and keep the joint point somewhere;
    and the serving smoke configs (Zamba2, Qwen3, RWKV6, DeepSeekMoE,
-   InternVL2, Whisper and DeepSeek-V2) in
-   float32, cuda against cpu (logits of prefill and 4 decode steps, greedy
-   tokens; #5's calls by route, all on ``gla_scan``);
-8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model
-   and its times at every case, #5's launches by path, model and
+   InternVL2, Whisper, DeepSeek-V2, Yi-6B, Gemma2-9B and DeepSeek-67B) in
+   float32, cuda against cpu (logits of 40-token prompts' prefill and 4
+   decode steps, greedy tokens; #5's calls by route, all on ``gla_scan``;
+   Gemma2's smoke window of 16 binds in both);
+8. one ``{"kernels": [...]}`` JSON line (#4's launches by path and model,
+   its times at every case and its Function's forward + backward beside
+   the library's and the bound (``autograd_by_case``), #5's launches by path,
+   model and
    route among their keys (``serve_golden``'s float32 calls too) and its
    times at every case in ``by_case`` (on ``gla_scan`` with the split-TF32
    ceiling, and the parent's time given ``--gla-parent``); its RWKV6 route
@@ -205,6 +224,7 @@ Needs one CUDA card; exits non-zero without one, and without the repo's
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -862,8 +882,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_ROUNDS = 4, 1024, 32, 2
 SERVE_MAX_SEQ = SERVE_PROMPT + SERVE_GEN + 8
 DECODE_POS = SERVE_PROMPT + SERVE_GEN // 2   # a mid-generation decode step
 # Whisper-base's decoder prompts: 128 tokens, within its 448 decoder
-# positions, on the encoder's 1,500 frames
-SERVE_PROMPTS = {"whisper-base": 128}
+# positions, on the encoder's 1,500 frames; Gemma2-9B's 4,608 tokens, the
+# 4,096-key local window plus 512 and within its 8,192-token context, so
+# that the window binds on its local layers in the prefill and at every
+# decode step
+SERVE_PROMPTS = {"whisper-base": 128, "gemma2-9b": 4096 + 512}
 VISION_TOKENS, FRAMES = 256, 1500          # InternVL2-2B's, Whisper-base's
 
 
@@ -885,12 +908,27 @@ def flash_cases():
     float32 prefill route's own cases (B * N = 65,536, H = 256 with window
     and softcap, a chunked prefill, GQA, H = 33) and the float32 prefills
     that ``[serve]``'s float32 checks run (DeepSeekMoE's and DeepSeek-V2's
-    at 2 x 1,023 tokens). The decode shapes run in float32 too: there the 2e-5 limit is far below the ~1e-3 that one key too many
-    or too few (an off-by-one ``length`` or ``q_offset``) moves an output
-    row by, which bfloat16's 2e-2 limit would let through."""
+    at 2 x 1,023 tokens); Yi-6B's (32 query heads on 4 KV heads of 128)
+    and DeepSeek-67B's (64 on 8) prefill and decode, 8 query heads a KV
+    head; Gemma2-9B's served calls (16 on 8 heads of 256, softcap 50) over
+    its 4,608-token prompt on a local layer (window 4,096) and a global one
+    (the ``GLOBAL_WINDOW`` sentinel, 1 << 30), and its decode step at a
+    position past 4,096 on both, in bf16 and float32. The decode shapes
+    run in float32 too: there the 2e-5 limit is far below the ~1e-3 that
+    one key too many or too few (an off-by-one ``length``, ``q_offset``
+    or window edge) moves an output row by, which bfloat16's 2e-2 limit
+    would let through; the bf16 prefills under a binding window are held
+    at its edge row by row (``window_edge_check``)."""
+    from repro_torch.models.attention import GLOBAL_WINDOW
     B, P, M, pos = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, DECODE_POS
     bf, f = torch.bfloat16, torch.float32
     dec = dict(causal=True, q_offset=pos, length=pos + 1)
+    # Gemma2-9B's served shapes: its prompt, its cache and a decode step
+    # mid-generation, 528 keys past the local window's 4,096
+    GP = SERVE_PROMPTS["gemma2-9b"]
+    GM, gpos = GP + SERVE_GEN + 8, GP + SERVE_GEN // 2
+    gdec = dict(causal=True, q_offset=gpos, length=gpos + 1, softcap=50.0)
+    local, glob = dict(window=4096), dict(window=GLOBAL_WINDOW)
     V, E, W = VISION_TOKENS, FRAMES, SERVE_PROMPTS["whisper-base"]
     # InternVL2's last decode step: 1,312 keys of its 1,320-slot cache
     last = dict(causal=True, q_offset=V + P + SERVE_GEN - 1,
@@ -948,6 +986,28 @@ def flash_cases():
          128, f, dict(causal=True)),
         ("deepseek-v2 prefill float32 (MLA, served)", 2, P - 1, P - 1, 128,
          128, 192, f, dict(causal=True)),
+        # 8 query heads a KV head: the decode route's two row groups of 4
+        # a KV head (decode_rows_per_block)
+        ("yi-6b prefill (GQA 8:1)", B, P, P, 32, 4, 128, bf,
+         dict(causal=True)),
+        ("yi-6b decode (GQA 8:1)", B, 1, M, 32, 4, 128, bf, dec),
+        ("yi-6b decode float32 (GQA 8:1)", B, 1, M, 32, 4, 128, f, dec),
+        ("deepseek-67b prefill (GQA 8:1)", B, P, P, 64, 8, 128, bf,
+         dict(causal=True)),
+        ("deepseek-67b decode (GQA 8:1)", B, 1, M, 64, 8, 128, bf, dec),
+        # Gemma2-9B served: the window binds on the local layers
+        ("gemma2 local prefill (served, window 4096)", B, GP, GP, 16, 8,
+         256, bf, dict(causal=True, softcap=50.0, **local)),
+        ("gemma2 global prefill (served, window 1 << 30)", B, GP, GP, 16, 8,
+         256, bf, dict(causal=True, softcap=50.0, **glob)),
+        ("gemma2 local decode (served, window 4096)", B, 1, GM, 16, 8, 256,
+         bf, dict(gdec, **local)),
+        ("gemma2 global decode (served, window 1 << 30)", B, 1, GM, 16, 8,
+         256, bf, dict(gdec, **glob)),
+        ("gemma2 local decode float32 (window 4096)", B, 1, GM, 16, 8, 256,
+         f, dict(gdec, **local)),
+        ("gemma2 global decode float32 (window 1 << 30)", B, 1, GM, 16, 8,
+         256, f, dict(gdec, **glob)),
     ]
 
 
@@ -957,18 +1017,20 @@ MLA_V_DIM = {"deepseek-v2 prefill (MLA)": 128,
              "deepseek-v2 prefill float32 (MLA, served)": 128}
 
 
-def sdpa_call(q, k, v, mask):
-    """The library yardstick: one ``scaled_dot_product_attention`` call on
-    the same inputs (heads-major views, GQA by ``enable_gqa``; an additive
-    mask where there is a cache length or a window); None where it cannot
-    compute the function (a softcap)."""
+def library_call(q, k, v, mask):
+    """The library yardstick: (its name, one PyTorch call computing #4's
+    function on the same inputs, heads-major views, GQA by ``enable_gqa``).
+    ``scaled_dot_product_attention`` (an additive mask where there is a
+    cache length or a window); under a softcap, which SDPA cannot take,
+    ``flex_attention`` compiled (``flex_call``)."""
     import torch.nn.functional as F
-    if mask.get("softcap") is not None:
-        return None
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
+    if mask.get("softcap") is not None:
+        return "flex_attention", flex_call(qt, kt, vt, mask, gqa)
+    name = "scaled_dot_product_attention"
     if mask.get("length") is None and mask.get("window") is None:
-        return lambda: F.scaled_dot_product_attention(
+        return name, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=mask.get("causal", True), enable_gqa=gqa)
     from repro_torch.kernels.flash_attention import ref as fa_ref
     qpos = mask.get("q_offset", 0) + torch.arange(q.shape[1], device=q.device)
@@ -977,8 +1039,71 @@ def sdpa_call(q, k, v, mask):
                         window=mask.get("window"), length=mask.get("length"))
     add = torch.zeros(keep.shape, dtype=q.dtype, device=q.device
                       ).masked_fill(~keep, float("-inf"))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add,
-                                                  enable_gqa=gqa)
+    return name, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=add, enable_gqa=gqa)
+
+
+@contextmanager
+def stack_limit_kept():
+    """The context's stack limit as it was on entry, set again on exit,
+    which hands back the local memory that kernels launched inside grew
+    it to: ``flex_attention``'s float32 kernels at head dim 256 take
+    13,616 bytes a thread, which kept 3.2 GiB of the card reserved for the
+    rest of the process (H100) and left the serving phase's largest check
+    short of memory."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    stack = ctypes.c_size_t()                  # CU_LIMIT_STACK_SIZE = 0
+    if cuda.cuCtxGetLimit(ctypes.byref(stack), 0) != 0:
+        raise RuntimeError("cuCtxGetLimit(CU_LIMIT_STACK_SIZE) failed")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        if cuda.cuCtxSetLimit(0, stack) != 0:
+            raise RuntimeError("cuCtxSetLimit(CU_LIMIT_STACK_SIZE) failed")
+
+
+def flex_call(qt, kt, vt, mask, gqa):
+    """``flex_attention`` under ``torch.compile`` at heads-major q, k, v:
+    the softcap as its score_mod (``cap * tanh(s / cap)`` of the scaled
+    score, as ``ref._attend``), ``ref._mask``'s causal, window and length
+    rules as a block mask built here (outside the timed call, as SDPA's
+    additive mask). Dynamo is reset first, so each case compiles afresh
+    and no case meets the recompile limit; Inductor's and Triton's caches
+    go under ``build/``. Only this script calls it: the port never does."""
+    import os
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" /
+                                                          "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    import torch._dynamo
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    # compile in this process: no pool of compile workers outlives it
+    torch._inductor.config.compile_threads = 1
+    torch._dynamo.reset()
+    cap, off = mask["softcap"], mask.get("q_offset", 0)
+    causal, window, length = (mask.get("causal", True), mask.get("window"),
+                              mask.get("length"))
+
+    def score_mod(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki >= 0
+        if causal:
+            keep = keep & (ki <= qi + off)
+        if window is not None:
+            keep = keep & (qi + off - ki < window)
+        if length is not None:
+            keep = keep & (ki < length)
+        return keep
+    block = create_block_mask(mask_mod, None, None, qt.shape[2], kt.shape[2],
+                              device=qt.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=block,
+                      scale=mask.get("scale"), enable_gqa=gqa)
 
 
 FLASH_SOURCES = [f"src/repro_torch/kernels/flash_attention/csrc/{f}" for f in
@@ -988,8 +1113,10 @@ FLASH_SOURCES = [f"src/repro_torch/kernels/flash_attention/csrc/{f}" for f in
 
 def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
     """One case of kernel #4 against its plain version (both called
-    directly on CUDA tensors), timed beside SDPA, with its route, rate and
-    share of the bound. Returns its record."""
+    directly on CUDA tensors), timed beside one library call
+    (``library_call``), with its route, rate and share of the bound; a
+    bf16 prefill whose window binds also held at the window's edge
+    (``window_edge_check``). Returns its record."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     dev = torch.device("cuda")
@@ -1011,8 +1138,9 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
     err = (got.float() - want.float()).abs().max().item()
     tol = FLASH_TOL[dt]
     ms, plain_ms = cuda_ms(kern, lead=True), cuda_ms(plain, reps=10)
-    lib = sdpa_call(q, k, v, mask)
-    lib_ms = None if lib is None else cuda_ms(lib, lead=True)
+    lib_name, lib = library_call(q, k, v, mask)
+    with stack_limit_kept():
+        lib_ms = cuda_ms(lib, lead=True)
     pairs = {k: x for k, x in mask.items() if k != "softcap"}
     flops = fa_kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
     nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H,
@@ -1041,16 +1169,20 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
           f"max|kernel-plain|={err:.3e} (limit {tol:g}); kernel "
           f"{ms:.4f} ms (device), {flops / ms / 1e9:.1f} TFLOP/s, "
           f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
-          f"the bound; plain {plain_ms:.4f} ms, library "
-          f"(scaled_dot_product_attention) "
-          + ("none (no softcap)" if lib_ms is None else
-             f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x")
-          + f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
+          f"the bound; plain {plain_ms:.4f} ms, library ({lib_name}) "
+          f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f}x"
+          f"; bound {bound_ms:.4f} ms by {by} (matmul flops "
           f"{flops:.4g} -> {ops_ms:.4f} ms, bytes {nbytes:.4g} -> "
           f"{bytes_ms:.4f} ms){split}", flush=True)
     if not err <= tol:
         raise AssertionError(f"flash attention disagrees with plain: "
                              f"{label}, {err:.3e}")
+    edge = {}
+    W = mask.get("window")
+    if dt == torch.bfloat16 and Sq > 1 and W is not None \
+            and W < mask.get("q_offset", 0) + Sq:
+        edge = {"window_edge": window_edge_check(label, got, want, q, k, v,
+                                                 mask)}
     if vd is not None:
         pad = got[..., vd:].abs().max().item()
         print(f"[kernel] flash_attention {label}: the output's columns "
@@ -1067,17 +1199,55 @@ def flash_case(card, label, B, Sq, Sk, N, K, H, dt, mask):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
-        **ceiling}
+        "library": lib_name, **ceiling, **edge}
     del q, k, v, got, want
     return rec
 
 
+ROW_RTOL = 2e-2   # a windowed bf16 prefill's rows: of each row's max|plain|
+
+
+def window_edge_check(label, got, want, q, k, v, mask):
+    """A bf16 prefill whose window binds, held at its window's edge: over
+    the rows the window cuts (query positions >= window - 1), each output
+    row (a query and a head) within ``ROW_RTOL`` of that row's max|plain|;
+    and, as the control, the plain version at a window one key shorter and
+    one key longer off the plain version by more than that limit on some
+    row. Under a 4,096-key window the rows are ~0.02 in size, so a key
+    too many or too few moves them by less than bf16's absolute 2e-2 but
+    by ~0.1 of a row's max. Returns the row error and the two controls."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    W, off = mask["window"], mask.get("q_offset", 0)
+    rows = slice(max(0, W - 1 - off), None)
+
+    def row_rel(a, b):
+        a, b = a[:, rows].float(), b[:, rows].float()
+        return ((a - b).abs().amax(-1)
+                / b.abs().amax(-1).clamp(min=1e-30)).max().item()
+    err = row_rel(got, want)
+    ctl = [row_rel(fa_ref.attention_reference(q, k, v, **dict(
+        mask, window=W + d)), want) for d in (-1, 1)]
+    print(f"[kernel] flash_attention {label}: window edge, rows at "
+          f"positions >= {W - 1}: max|kernel-plain| / the row's max|plain| "
+          f"{err:.3e} (limit {ROW_RTOL:g}); control, plain at window "
+          f"{W - 1} / {W + 1} against window {W}: {ctl[0]:.3e} / "
+          f"{ctl[1]:.3e} (each must pass the limit)", flush=True)
+    if not err <= ROW_RTOL < min(ctl):
+        raise AssertionError(f"{label}: window edge {err:.3e}, controls "
+                             f"{ctl} against {ROW_RTOL:g}")
+    return {"row_rel_err": err, "control_shorter": ctl[0],
+            "control_longer": ctl[1], "limit": ROW_RTOL}
+
+
 def case_row(rec):
     """A ``flash_case`` record as #4's ``by_case`` keeps it: its times and
-    bound, and on the float32 prefill route its split-TF32 ceiling."""
+    bound, the library call it was timed against, on the float32 prefill
+    route its split-TF32 ceiling, and on a windowed bf16 prefill its
+    window edge check."""
     return {k: rec[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "max_abs_err", "ceiling_ms", "ceiling_by") if k in rec}
+        "library", "max_abs_err", "ceiling_ms", "ceiling_by", "window_edge")
+        if k in rec}
 
 
 def phase_flash_kernel(card):
@@ -2537,7 +2707,8 @@ def phase_fleet():
 # ------------------------------------------------- phase 6: serving path
 
 SERVE_ARCHS = ("zamba2-7b", "qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b",
-               "internvl2-2b", "whisper-base", "deepseek-v2-236b")
+               "internvl2-2b", "whisper-base", "deepseek-v2-236b", "yi-6b",
+               "gemma2-9b", "deepseek-67b")
 CONSISTENCY_TOL = 5e-2                # decode vs prefill, x max|logit|, bf16
 FLOAT32_CONSISTENCY_TOL = 1e-4        # the same in float32 (serving's golden)
 DISPATCH_TOL = 1e-4                   # scatter vs einsum, x max|logit|
@@ -2545,7 +2716,12 @@ DISPATCH_TOL = 1e-4                   # scatter vs einsum, x max|logit|
 # dense first layer and 7 MoE layers: 29.2 B parameters, 54.4 GiB in
 # bf16; the whole model's 235.7 B would take 440 GiB); its float32 checks
 # at the dense layer and one MoE layer (5.36 B parameters, 20 GiB)
-SERVE_LAYERS = {"deepseek-v2-236b": 8}
+# DeepSeek-67B at its published widths, cut to 32 of 95 layers: 0.692 B
+# parameters a layer (attention 151 M: q and o 8,192^2 each, k and v
+# 8,192 x 1,024 each; the SwiGLU MLP 3 x 8,192 x 22,016 = 541 M) and
+# 1.678 B of embedding and untied head (2 x 102,400 x 8,192), 23.8 B
+# parameters, ~44 GiB in bf16; the whole model's 67.4 B would take ~126 GiB
+SERVE_LAYERS = {"deepseek-v2-236b": 8, "deepseek-67b": 32}
 FLOAT32_LAYERS = {"deepseek-v2-236b": 2}
 
 
@@ -2698,6 +2874,7 @@ def phase_serve():
             fa_by_model[arch] = counts[3]
         if cfg.mla is not None:
             latent_cache_bytes(arch, model)
+        windowed_calls(arch, model)
         if cfg.moe:
             moe_serve_checks(arch, cfg, model, res)
         else:
@@ -2705,7 +2882,10 @@ def phase_serve():
         if cfg.family in ("hybrid", "ssm"):
             profile_prefill(arch, model, res.prefill_ms)
             profile_decode(arch, model)
-        elif cfg.family in ("vlm", "encdec"):
+        elif cfg.family in ("vlm", "encdec") or local_global(cfg):
+            # a windowed model's long prompt: #4's share of its prefill
+            # and decode (Gemma2's decode also makes a float32 copy of its
+            # tied 256,000-row head a step)
             profile_prefill(arch, model, res.prefill_ms, which="#4")
             profile_decode(arch, model, which="#4")
         del model
@@ -2714,6 +2894,42 @@ def phase_serve():
             moe_float32_checks(arch, cfg.replace(
                 num_layers=FLOAT32_LAYERS.get(arch, cfg.num_layers)))
     return totals, routes, gla_routes, gla_by_model, fa_by_model
+
+
+def local_global(cfg):
+    """Whether a config alternates local (windowed) and global layers."""
+    return cfg.attn is not None and cfg.attn.pattern == "local_global"
+
+
+def windowed_calls(arch, model, prompt=None, gen=SERVE_GEN, tag="[serve]"):
+    """For a model with local layers (Gemma2's even layers), how many of a
+    prefill's queries and which decode positions see a key span cut by the
+    window, at ``prompt`` tokens (default the serving prompt) and ``gen``
+    decoded tokens; raises if the window binds nowhere. Prints nothing
+    for a model without a window."""
+    cfg = model.cfg
+    if not local_global(cfg):
+        return
+    from repro_torch.models.attention import GLOBAL_WINDOW
+    W = cfg.attn.window
+    T, start, _ = serve_shape(arch, cfg)
+    T = T if prompt is None else prompt
+    wins = model.windows()
+    n_local = sum(w == W for w in wins)
+    n_global = sum(w == GLOBAL_WINDOW for w in wins)
+    # a query at position p attends keys (p - W, p]: the window cuts its
+    # span once p >= W
+    queries = max(0, start + T - max(W, start))
+    decode = [p for p in range(start + T, start + T + gen) if p >= W]
+    print(f"{tag} {arch}: window {W} on {n_local} local layers, "
+          f"GLOBAL_WINDOW ({GLOBAL_WINDOW}) on {n_global} global layers; "
+          f"under the window: {queries} of each prompt's {T} prefill queries "
+          f"(positions {max(W, start)}..{start + T - 1}) and {len(decode)} of "
+          f"{gen} decode positions"
+          + (f" ({decode[0]}..{decode[-1]})" if decode else "")
+          + "; the global layers attend the whole prefix", flush=True)
+    if not (n_local and n_global and queries and len(decode) == gen):
+        raise AssertionError(f"{arch}: the window does not bind")
 
 
 def latent_cache_bytes(arch, model):
@@ -3055,9 +3271,21 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2
 # AdamW's old and new float32 moments at ~26 bytes a parameter); one MoE
 # layer more (5.36 B, ~130 GB) does not fit the card
 V2_TRAIN_LAYERS, V2_TRAIN_STEPS = 1, 2
-# InternVL2-2B (~1.9 B parameters; 256 vision positions before each
-# sequence) and Whisper-base (~71 M; 1,500 frames) at full width and depth
-STUB_TRAIN_STEPS = 2
+# The dense models at their published widths, depths set by AdamW's
+# memory (~29 bytes a parameter at a step's peak: the bf16 weights and
+# gradients, the float32 moments old and new): Yi-6B at 8 of 32 layers
+# (8 x 173 M + 2 x 64,000 x 4,096 of embedding and untied head: 1.91 B,
+# ~52 GiB reckoned), Gemma2-9B at 4 of 42 (an even number, so that its
+# local and global layers pair: 4 x 198 M + its tied 256,000 x 3,584
+# embedding: 1.71 B, ~46 GiB, and 8 x 255 x 256,000 float32 logits, ~2 GB,
+# with their gradient), DeepSeek-67B at 1 of 95 (0.69 B + 1.68 B of
+# embedding and head: 2.37 B, ~64 GiB); their peaks measured 41.3, 49.9
+# and 62.5 GiB on an H100 80GB HBM3 at 700 W; InternVL2-2B (~1.9 B
+# parameters; 256 vision positions before each sequence) and Whisper-base
+# (~71 M; 1,500 frames) at full depth (None)
+FAMILY_TRAIN_LAYERS = {"internvl2-2b": None, "whisper-base": None,
+                       "yi-6b": 8, "gemma2-9b": 4, "deepseek-67b": 1}
+FAMILY_TRAIN_STEPS = 2
 GRAD_TOL = 2e-2                       # Function vs plain gradients, x max
 RESUME_TOL = 1e-5                     # tests/test_checkpoint_data.py:69
 BF16_PEAK = 989e12                    # H100 SXM dense bf16 FLOP/s
@@ -3134,6 +3362,11 @@ def run_train(label, cfg, steps, profile=None, **kw):
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
+    # a wrapped ``model.loss`` (below) refers back to its model, which so
+    # outlives the run that built it: collect it, so that this run's peak
+    # memory holds none of an earlier model
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = build_model(cfg, "cuda", seed=0)
     torch.cuda.synchronize()
@@ -3217,62 +3450,134 @@ def run_train(label, cfg, steps, profile=None, **kw):
     return res, counts[3:5], gla_routes
 
 
-def function_grads(label, fn, plain, inputs, leaves, reps=10):
+def function_grads(label, fn, plain, inputs, leaves, reps=10, library=None):
     """The gradients of ``sum(w * out[0])`` to ``leaves`` through ``fn``
     (the autograd Function with the kernel forward) and through ``plain``
     (the plain route under autograd), each from fresh ``inputs()``; the
     forward outputs within bf16's 2e-2 of max, each gradient within
     GRAD_TOL of its largest |value|; and the CUDA-event ms of a forward +
-    backward each way."""
-    outs = {}
+    backward each way, timed in turns (``cuda_ms_turns``), with
+    ``library=(name, make)`` a library's too (``make(w)``: its forward +
+    backward of ``sum(w * out)``). Returns the ms by way: ``function``,
+    ``plain`` and ``library``."""
+    outs, ways = {}, {}
     for name, f in (("function", fn), ("plain", plain)):
         out = f(*inputs())
         w = torch.randn(out[0].shape, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(5))
         grads = torch.autograd.grad((out[0].float() * w).sum(), leaves)
-        outs[name] = (out[0].detach(), grads, w)
+        outs[name] = (out[0].detach(), grads)
 
         def fwd_bwd(f=f, w=w):
             o = f(*inputs())[0]
             torch.autograd.grad((o.float() * w).sum(), leaves)
-        outs[name] += (cuda_ms(fwd_bwd, reps=reps),)
-    (o1, g1, _, ms1), (o2, g2, _, ms2) = outs["function"], outs["plain"]
+        ways[name] = fwd_bwd
+    if library is not None:
+        ways["library"] = library[1](w)
+    ms = cuda_ms_turns(ways, reps)
+    (o1, g1), (o2, g2) = outs["function"], outs["plain"]
     fgap = ((o1.float() - o2.float()).abs().max()
             / o2.float().abs().max()).item()
     gaps = [((a.float() - b.float()).abs().max()
              / b.float().abs().max().clamp(min=1e-30)).item()
             for a, b in zip(g1, g2)]
     exact = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    lib = "" if library is None else (
+        f", {ms['library']:.3f} ms by the library ({library[0]}), Function "
+        f"/ library {ms['function'] / ms['library']:.2f}x")
     print(f"[train] {label}: forward (kernel) vs plain {fgap:.3e} (limit "
           f"2e-2 x max); gradients vs the plain route's (a wiring check: "
           f"both backwards are the plain version's autograd on the same "
           f"saved inputs), largest gap relative to the largest |value| per "
           f"input {[f'{x:.3e}' for x in gaps]} (limit {GRAD_TOL}), bit for "
-          f"bit: {exact}; forward + backward {ms1:.3f} ms through the "
-          f"Function, "
-          f"{ms2:.3f} ms plain (CUDA events, median of {reps})", flush=True)
+          f"bit: {exact}; forward + backward {ms['function']:.3f} ms through "
+          f"the Function, {ms['plain']:.3f} ms plain{lib} (CUDA events, "
+          f"median of {reps} in turns)", flush=True)
     if fgap > 2e-2 or max(gaps) > GRAD_TOL:
         raise AssertionError(f"[train] {label}: forward {fgap:.3e} or "
                              f"gradients {gaps} beyond their limits")
+    return ms
 
 
-def phase_function_grads():
-    """Kernels #4 and #5 wrapped for autograd (``ops.FlashAttention``,
-    ``ops.GLAScan``) against the plain route on the card, bf16: #4 at a
-    full-width Qwen3-0.6B attention layer of a train step (8 x 256
-    positions, 16 query heads on 8 KV heads of 128, causal), #5 at
-    Zamba2-7B's Mamba2 training shapes (the heads and state of
-    ``gla_cases``: 112 heads, state 64, head 64, chunk 256; B and C shared
-    by the heads)."""
+def cuda_ms_turns(fns, reps, warmup=3):
+    """Median CUDA-event ms of each of ``fns`` (name -> callable), timed in
+    turns: every repetition runs each once, so a drift of the card's clock
+    or of the host's load falls on all of them alike."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def flash_function_case(label, card, q, k, v, kw, reps=30):
+    """#4's autograd Function (``ops.FlashAttention``, the kernel forward)
+    at leaves q, k, v and mask options ``kw`` against the plain route
+    (``function_grads``), its forward + backward timed in turns with one
+    library call's (``library_call``: SDPA, or compiled flex_attention
+    under a softcap); and the least time a forward + backward could take:
+    the larger of 3.5 x the forward's products (FlashAttention-2's count:
+    the backward takes 2.5 x the forward's) over the peak rate of the
+    type, and 3 x the forward's bytes over the memory rate (the backward
+    reads q, k, v, o and dO and writes dq, dk and dv once). Returns its
+    record."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    B, Sq, N, H = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    pairs = {x: kw[x] for x in ("causal", "window", "q_offset", "length")}
+    flops = fa_kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
+    nbytes = fa_kernel.attention_bytes(B, Sq, Sk, N, K, H, q.element_size(),
+                                       **pairs)
+    bound_ms, by, _, _ = card.bound(3.5 * flops, 3 * nbytes, q.dtype)
+    name, lib = library_call(q, k, v, kw)
+
+    def make(w):
+        wt = w.transpose(1, 2)
+
+        def fwd_bwd():
+            torch.autograd.grad((lib().float() * wt).sum(), (q, k, v))
+        return fwd_bwd
+    with stack_limit_kept():
+        ms = function_grads(
+            label, lambda *x: (fa_ops.FlashAttention.apply(
+                *x, fa_kernel.flash_attention_cuda, kw),),
+            lambda *x: (fa_ref.attention_chunked(*x, **kw),),
+            lambda: (q, k, v), (q, k, v), reps=reps, library=(name, make))
+    print(f"[train] {label}: bound of a forward + backward {bound_ms:.4f} ms "
+          f"by {by} (forward products x 3.5, bytes x 3), the Function at "
+          f"{100 * bound_ms / ms['function']:.1f}% of it", flush=True)
+    return {"ms": ms["function"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "library": name,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def phase_function_grads(card):
+    """Kernels #4 and #5 wrapped for autograd (``ops.FlashAttention``,
+    ``ops.GLAScan``) against the plain route on the card, bf16: #4 at
+    Whisper-base's cross-attention (``cross_grads``), a full-width
+    Qwen3-0.6B attention layer of a train step (8 x 256 positions, 16
+    query heads on 8 KV heads of 128, causal) and Gemma2-9B's local layer
+    (``gemma2_grads``); #5 at Zamba2-7B's Mamba2 training shapes (the
+    heads and state of ``gla_cases``: 112 heads, state 64, head 64, chunk
+    256; B and C shared by the heads) and RWKV6-7B's time mix. Returns
+    #4's records by label (``flash_function_case``)."""
     from repro_torch.kernels.linear_scan import kernel as gla_kernel
     from repro_torch.kernels.linear_scan import ops as gla_ops
     from repro_torch.kernels.linear_scan import ref as gla_ref
     g = torch.Generator(device="cuda").manual_seed(11)
     bf = torch.bfloat16
-    cross_grads(g)
+    records = dict([cross_grads(g, card)])
 
     def leaf(*shape, dt=bf, scale=1.0):
         return (scale * torch.randn(shape, generator=g, device="cuda")).to(
@@ -3280,14 +3585,9 @@ def phase_function_grads():
 
     B, S = TRAIN_BATCH, TRAIN_SEQ
     q, k, v = leaf(B, S, 16, 128), leaf(B, S, 8, 128), leaf(B, S, 8, 128)
-    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
-              length=None, scale=None)
-    function_grads(
-        "#4 FlashAttention, Qwen3-0.6B layer (8 x 256, 16 / 8 heads of 128)",
-        lambda *x: (fa_ops.FlashAttention.apply(
-            *x, fa_kernel.flash_attention_cuda, kw),),
-        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
-        lambda: (q, k, v), (q, k, v))
+    label = "#4 FlashAttention, Qwen3-0.6B layer (8 x 256, 16 / 8 heads of 128)"
+    records[label] = flash_function_case(label, card, q, k, v, FUNCTION_KW)
+    records.update([gemma2_grads(g, card)])
     H, K, V = 112, 64, 64
     c, b, xv = leaf(B, S, 1, K), leaf(B, S, 1, K), leaf(B, S, H, V)
     raw = leaf(B, S, H, dt=torch.float32)
@@ -3322,17 +3622,40 @@ def phase_function_grads():
                                          ropts),
         lambda *x: gla_ref.gla_chunked(*x, bonus=u, **ropts),
         rwkv_inputs, (r, kk, vv, w_raw, u))
+    return records
 
 
-def cross_grads(g):
+# #4's Function's mask options, each case replacing what it sets
+FUNCTION_KW = dict(causal=True, window=None, softcap=None, q_offset=0,
+                   length=None, scale=None)
+
+
+def gemma2_grads(g, card):
+    """#4's autograd Function at Gemma2-9B's widths (16 query heads on 8 KV
+    heads of 256) with its local layer's window of 4,096 and attention
+    softcap of 50, over one sequence of 4,608 positions (the served
+    prompt: the window binds on its last 512 queries), against the plain
+    route, bf16. q is scaled by 8, so that the scores (std ~8) reach the
+    softcap's bend. Returns (label, record)."""
+    S = SERVE_PROMPTS["gemma2-9b"]
+
+    def leaf(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(
+            torch.bfloat16).requires_grad_()
+
+    q, k, v = leaf(1, S, 16, 256, scale=8.0), leaf(1, S, 8, 256), \
+        leaf(1, S, 8, 256)
+    label = (f"#4 FlashAttention, Gemma2-9B local layer (1 x {S}, 16 / 8 "
+             f"heads of 256, window 4096, softcap 50)")
+    return label, flash_function_case(label, card, q, k, v, dict(
+        FUNCTION_KW, window=4096, softcap=50.0), reps=20)
+
+
+def cross_grads(g, card):
     """#4's autograd Function at Whisper-base's cross-attention in a train
     step (8 x 255 decoder positions on 1,500 frames, 8 heads of 64,
     non-causal: the gradients reach the encoder through k and v) against
-    the plain route, bf16."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-
+    the plain route, bf16. Returns (label, record)."""
     def leaf(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16).requires_grad_()
@@ -3340,21 +3663,17 @@ def cross_grads(g):
     B, S = TRAIN_BATCH, TRAIN_SEQ - 1
     q, k, v = leaf(B, S, 8, 64), leaf(B, FRAMES, 8, 64), \
         leaf(B, FRAMES, 8, 64)
-    kw = dict(causal=False, window=None, softcap=None, q_offset=0,
-              length=None, scale=None)
-    function_grads(
-        f"#4 FlashAttention, Whisper-base cross-attention ({B} x {S} on "
-        f"{FRAMES} frames, 8 heads of 64, non-causal)",
-        lambda *x: (fa_ops.FlashAttention.apply(
-            *x, fa_kernel.flash_attention_cuda, kw),),
-        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
-        lambda: (q, k, v), (q, k, v))
+    label = (f"#4 FlashAttention, Whisper-base cross-attention ({B} x {S} on "
+             f"{FRAMES} frames, 8 heads of 64, non-causal)")
+    return label, flash_function_case(label, card, q, k, v, dict(
+        FUNCTION_KW, causal=False))
 
 
 def kill_and_resume():
     """``python -m repro_torch.launch.train --smoke`` on the card in
     subprocesses: killed at step 17 (after the step-10 checkpoint), resumed
-    to 30, against an uninterrupted run to 30; every leaf of the step-30
+    to 30, against an uninterrupted run to 30 beside them; every leaf of
+    the step-30
     checkpoints bit for bit, or within RESUME_TOL (the reference test's
     limit, where the card's atomic adds in the embedding's backward may
     reorder a sum)."""
@@ -3370,19 +3689,33 @@ def kill_and_resume():
             "--seq", "64", "--ckpt-every", "10", "--log-every", "10",
             "--device", "cuda"]
 
-    def run(extra, rc):
-        t0 = time.perf_counter()
-        r = subprocess.run(base + extra, env=env, capture_output=True,
-                           text=True, timeout=600)
-        if r.returncode != rc:
-            raise AssertionError(f"[train] {' '.join(extra)}: exit "
-                                 f"{r.returncode}, expected {rc}: "
-                                 f"{r.stderr[-2000:]}")
-        return r.stdout, time.perf_counter() - t0
+    def start(extra):
+        return (extra, time.perf_counter(), subprocess.Popen(
+            base + extra, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
 
-    _, ta = run(["--ckpt-dir", str(out / "a"), "--kill-at-step", "17"], 42)
-    resumed, tb = run(["--ckpt-dir", str(out / "a")], 0)
-    _, tc = run(["--ckpt-dir", str(out / "b")], 0)
+    def finish(job, rc):
+        extra, t0, proc = job
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != rc:
+            raise AssertionError(f"[train] {' '.join(extra)}: exit "
+                                 f"{proc.returncode}, expected {rc}: "
+                                 f"{stderr[-2000:]}")
+        return stdout, time.perf_counter() - t0
+
+    # the uninterrupted run beside the killed one and its relaunch
+    whole = start(["--ckpt-dir", str(out / "b")])
+    try:
+        _, ta = finish(start(["--ckpt-dir", str(out / "a"),
+                              "--kill-at-step", "17"]), 42)
+        resumed, tb = finish(start(["--ckpt-dir", str(out / "a")]), 0)
+    finally:
+        _, tc = finish(whole, 0)
     if "resumed from step 10" not in resumed:
         raise AssertionError("[train] the relaunch did not resume from 10")
     da, db = (out / x / "step_00000030" / "arrays" for x in "ab")
@@ -3406,23 +3739,27 @@ def kill_and_resume():
         raise AssertionError(f"[train] resumed run off by {gap:.3e}")
 
 
-def train_stub_families():
-    """InternVL2-2B and Whisper-base at full width and depth, for
-    STUB_TRAIN_STEPS steps each (``run_train``: Whisper's batches carry
-    the stub's zero frames, InternVL2's seeded vision embeddings in place
-    of the stub's zeros). Returns each one's launches of #4 and #5."""
+def train_families():
+    """The models of FAMILY_TRAIN_LAYERS at their published widths and
+    depths there, for FAMILY_TRAIN_STEPS steps each (``run_train``:
+    Whisper's batches carry the stub's zero frames, InternVL2's seeded
+    vision embeddings in place of the stub's zeros). Returns each one's
+    launches of #4 and #5."""
     from repro_torch.configs import get_arch
     launched = {}
-    for arch in ("internvl2-2b", "whisper-base"):
-        cfg = get_arch(arch).config.replace(remat="none")
-        label = f"{arch} (all {cfg.num_layers} layers" + (
+    for arch, layers in FAMILY_TRAIN_LAYERS.items():
+        cfg = get_arch(arch).config
+        layers = layers or cfg.num_layers
+        label = f"{arch} ({layers} of {cfg.num_layers} layers" + (
             f", {cfg.encoder_layers} encoder layers"
             if cfg.encoder_layers else "") + ")"
-        launched[arch] = run_train(label, cfg, STUB_TRAIN_STEPS)[1]
+        launched[arch] = run_train(
+            label, cfg.replace(num_layers=layers, remat="none"),
+            FAMILY_TRAIN_STEPS)[1]
     return launched
 
 
-def phase_train():
+def phase_train(card):
     """The trainer on the card: Qwen3-0.6B at full published width in bf16
     for TRAIN_STEPS steps with the carbon gate on (each hour's budget
     printed), loss finite and falling; the autograd Functions' gradients
@@ -3430,9 +3767,11 @@ def phase_train():
     widths and ZAMBA_TRAIN_LAYERS / RWKV_TRAIN_LAYERS layers; the
     kill-and-resume replay; DeepSeekMoE-16B and DeepSeek-V2-236B at their
     published widths and MOE_TRAIN_LAYERS / V2_TRAIN_LAYERS layers;
-    InternVL2-2B and Whisper-base at full width
-    and depth. Returns the launches of #4 and #5 on the training runs,
-    #5's calls by model and route, and #4's launches by model."""
+    InternVL2-2B and Whisper-base at full width and depth, Yi-6B,
+    Gemma2-9B and DeepSeek-67B at FAMILY_TRAIN_LAYERS' depths. Returns
+    the launches of #4 and #5 on the training runs, #5's calls by model
+    and route, #4's launches by model, and #4's Function's records by
+    label (``phase_function_grads``)."""
     from repro_torch.configs import get_arch
     cfg = get_arch("qwen3-0.6b").config.replace(remat="none")
     res, launched, _ = run_train("qwen3-0.6b", cfg, TRAIN_STEPS,
@@ -3447,7 +3786,7 @@ def phase_train():
     if not last3 < first:
         raise AssertionError("[train] qwen3-0.6b: the loss did not fall")
     totals = list(launched)
-    phase_function_grads()
+    autograd = phase_function_grads(card)
     zcfg = get_arch("zamba2-7b").config.replace(
         num_layers=ZAMBA_TRAIN_LAYERS, remat="none")
     _, zlaunched, zroutes = run_train(
@@ -3468,15 +3807,16 @@ def phase_train():
     _, vlaunched, _ = run_train(
         f"deepseek-v2-236b ({V2_TRAIN_LAYERS} of 60 layers)", vcfg,
         V2_TRAIN_STEPS)
-    stubbed = train_stub_families()
+    families = train_families()
     totals = [sum(x) for x in zip(totals, zlaunched, rlaunched, mlaunched,
-                                  vlaunched, *stubbed.values())]
+                                  vlaunched, *families.values())]
     kill_and_resume()
     fa_by_model = {"qwen3-0.6b": launched[0], "zamba2-7b": zlaunched[0],
                    "deepseek-moe-16b": mlaunched[0],
                    "deepseek-v2-236b": vlaunched[0],
-                   **{a: n[0] for a, n in stubbed.items()}}
-    return totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model
+                   **{a: n[0] for a, n in families.items()}}
+    return (totals, {"zamba2-7b": zroutes, "rwkv6-7b": rroutes}, fa_by_model,
+            autograd)
 
 
 # ----------------------------------------------- phase 6c: the examples
@@ -3609,28 +3949,19 @@ def fig12_card_vs_cpu(n_clusters=4, days=3):
         raise AssertionError("[examples] fig12 card vs CPU disagree")
 
 
-def train_example_function_cost():
+def train_example_function_cost(card):
     """#4's autograd Function at train_carbon_aware's attention call in
     float32 (its forward the ``flash_attention.cu`` route, its backward
     the plain version's autograd) against the plain route: the cost of a
-    forward + backward each way."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
+    forward + backward each way. Returns (label, record)."""
     _, B, S, _, N, K, H, dt, _ = EX_TRAIN_CASE
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v = (torch.randn(s, generator=g, device="cuda", dtype=dt)
                .requires_grad_() for s in ((B, S, N, H), (B, S, K, H),
                                            (B, S, K, H)))
-    kw = dict(causal=True, window=None, softcap=None, q_offset=0,
-              length=None, scale=None)
-    function_grads(
-        "#4 FlashAttention, train_carbon_aware layer (4 x 128, 8 / 4 heads "
-        "of 64, float32)",
-        lambda *x: (fa_ops.FlashAttention.apply(
-            *x, fa_kernel.flash_attention_cuda, kw),),
-        lambda *x: (fa_ref.attention_chunked(*x, **kw),),
-        lambda: (q, k, v), (q, k, v))
+    label = ("#4 FlashAttention, train_carbon_aware layer (4 x 128, 8 / 4 "
+             "heads of 64, float32)")
+    return label, flash_function_case(label, card, q, k, v, FUNCTION_KW)
 
 
 def phase_examples(card):
@@ -3644,9 +3975,10 @@ def phase_examples(card):
     draws, the loss falling (the example raises otherwise); Fig 12 on the
     card against the CPU; #4 at serve_shaped's calls (``EX_SERVE_CASES``)
     and at train_carbon_aware's float32 call against its plain version and
-    SDPA, and its Function's cost (#3 at the --spatial sweep's shape is
+    SDPA, and its Function's cost beside SDPA's (#3 at the --spatial sweep's shape is
     held in ``phase_joint_s``). Returns each example's launches of #1 to
-    #5 and #3's and #4's routes, by label, and #4's records by case."""
+    #5 and #3's and #4's routes, by label, #4's records by case and its
+    Function's record by label."""
     import shutil
 
     from repro_torch import sim
@@ -3744,7 +4076,7 @@ def phase_examples(card):
 
     flash_ex = {case[0]: flash_case(card, *case)
                 for case in EX_SERVE_CASES + [EX_TRAIN_CASE]}
-    train_example_function_cost()
+    autograd = dict([train_example_function_cost(card)])
     shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
     n_f32 = EX_TRAIN_STEPS * EX_TRAIN_LAYERS
     try:
@@ -3767,7 +4099,10 @@ def phase_examples(card):
     print(f"[examples] wall seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
           + f"; the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launched, routes, flash_ex
+    return launched, routes, flash_ex, autograd
+
+
+GOLDEN_PROMPT = 40                     # [serve-golden]'s prompt tokens
 
 
 def phase_serve_golden(gen=4):
@@ -3789,9 +4124,12 @@ def phase_serve_golden(gen=4):
         cfg = get_arch(arch).smoke.replace(remat="none", dtype="float32")
         cpu = build_model(cfg, "cpu", seed=3)
         gpu = copy.deepcopy(cpu).to("cuda")
-        kw = dict(smoke=True, batch=4, prompt_len=40,
+        kw = dict(smoke=True, batch=4, prompt_len=GOLDEN_PROMPT,
                   gen=gen, rounds=2, carbon_aware=True, keep_logits=True,
                   verbose=False)
+        # Gemma2's smoke window (16) binds in these prefills and decodes
+        windowed_calls(arch, cpu, prompt=GOLDEN_PROMPT, gen=gen,
+                       tag="[serve-golden]")
         before = dict(gla_kernel.gla_cuda.routes)
         got = serve(arch, device="cuda", model=gpu, **kw)
         gla = {r: gla_kernel.gla_cuda.routes[r] - before[r] for r in before}
@@ -4003,13 +4341,24 @@ def main(argv=None):
                          "#5's split-TF32 route at each of its cases")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
+    last = [t0]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - last[0]:.1f} s (at {now - t0:.1f} s)",
+              flush=True)
+        last[0] = now
     name, sms, clock_mhz = phase_device()
     card = Card(sms, clock_mhz)
     phase_build()
+    lap("[build]")
     joint, s_project = phase_joint_kernel(card)
-    records = [phase_kernels(card), phase_ens_kernel(card), joint,
-               phase_flash_kernel(card),
-               *phase_gla_kernel(card, args.gla_parent), s_project]
+    records = [phase_kernels(card), phase_ens_kernel(card), joint]
+    lap("[kernel] #1 to #3")
+    records.append(phase_flash_kernel(card))
+    lap("[kernel] #4")
+    records += [*phase_gla_kernel(card, args.gla_parent), s_project]
+    lap("[kernel] #5")
     # #5's RWKV6 route (gla_vec.cu): a record of its own, moved last
     records.append(records.pop(5))
     records[0]["launches"] = phase_main_path()
@@ -4025,13 +4374,19 @@ def main(argv=None):
     # #1's launches and its suffix epoch on the closed-loop path
     records[0].update(phase_closed_loop(card))
     phase_telemetry()
+    lap("the main, slice, closed-loop, telemetry and fleet phases")
     serving, records[3]["launches_by_route"], \
         records[4]["launches_by_route"], gla_serve, fa_serve = phase_serve()
+    lap("[serve]")
     # #4 and #5 run on two paths, each counted from 0: serving and training
-    training, gla_train, fa_train = phase_train()
+    training, gla_train, fa_train, autograd = phase_train(card)
+    lap("[train]")
     # the examples, each counted from 0: #1 to #4 by example (and #3's
     # and #4's routes); #4's examples' launches join its serve and train
-    ex_launched, ex_routes, flash_ex = phase_examples(card)
+    ex_launched, ex_routes, flash_ex, ex_autograd = phase_examples(card)
+    lap("[examples]")
+    # #4's autograd Function: its forward + backward by case
+    records[3]["autograd_by_case"] = {**autograd, **ex_autograd}
     for i, rec in enumerate(records[:4]):
         rec["launches_by_example"] = {k: c[i] for k, c in ex_launched.items()
                                       if c[i]}
@@ -4058,8 +4413,10 @@ def main(argv=None):
     phase_cross_device(telemetry=True)
     phase_cross_device(slice_path=True)
     phase_cross_device(closed_loop=True, telemetry=True)
+    lap("[golden]")
     records[4]["launches_by_path_model_route"]["serve_golden"] = \
         phase_serve_golden()
+    lap("[serve-golden]")
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(smi("name,power.limit"))

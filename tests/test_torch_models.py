@@ -194,6 +194,20 @@ def test_bfloat16_qwen3_matches_reference():
     _prefill_and_decode("qwen3-0.6b", "bfloat16", rtol=2e-2)
 
 
+def test_gemma2_full_config_windows_match_reference():
+    """Gemma2-9B's published 42 layers alternate a 4,096-key window (even
+    layers) with the ``GLOBAL_WINDOW`` sentinel (odd ones), element for
+    element as the JAX package's ``_windows``; the port's model is built
+    on the meta device (no weights drawn)."""
+    jcfg, cfg = (a.config.replace(remat="none")
+                 for a in (jget_arch("gemma2-9b"), get_arch("gemma2-9b")))
+    want = np.asarray(jbuild_model(jcfg)._windows()).tolist()
+    got = build_model(cfg, "meta", generator=torch.Generator()).windows()
+    assert got == want and len(got) == 42
+    assert got[0::2] == [4096] * 21 and got[1::2] == [1 << 30] * 21
+    assert A.GLOBAL_WINDOW == jA.GLOBAL_WINDOW == 1 << 30
+
+
 @pytest.mark.parametrize("name", ("deepseek-v2-236b",))
 def test_build_model_refuses_flash_decode(name):
     """Every family builds; the sharded flash decode of the cache (MLA's

@@ -77,13 +77,21 @@ def _reference_loop(jm, params, cfg, *, batch, prompt_len, gen, rounds):
     return batches, logits
 
 
+# Gemma2's smoke window is 16 keys: a 24-token prompt makes it bind in the
+# prefill (queries 16..23) and at every decode step (positions 24..27)
+PROMPTS = {"gemma2-9b": 24}
+
+
 @pytest.mark.parametrize("arch", ("zamba2-7b", "qwen3-0.6b",
                                   "deepseek-moe-16b", "internvl2-2b",
-                                  "whisper-base"))
+                                  "whisper-base", "yi-6b", "gemma2-9b",
+                                  "deepseek-67b"))
 def test_serve_matches_reference_loop(arch):
-    kw = dict(batch=3, prompt_len=12, gen=4, rounds=2)
+    kw = dict(batch=3, prompt_len=PROMPTS.get(arch, 12), gen=4, rounds=2)
     jcfg = jget_arch(arch).smoke.replace(dtype="float32", remat="none")
     cfg = get_arch(arch).smoke.replace(dtype="float32", remat="none")
+    if cfg.attn is not None and cfg.attn.pattern == "local_global":
+        assert cfg.attn.window < kw["prompt_len"]     # the window binds
     jm = jbuild_model(jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     model = build_model(cfg, "cpu")

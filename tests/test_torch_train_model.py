@@ -40,7 +40,7 @@ from repro_torch.training import init_train_state, make_train_step
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
-ARCHS = ("qwen3-0.6b", "zamba2-7b")
+ARCHS = ("qwen3-0.6b", "zamba2-7b", "gemma2-9b", "yi-6b")
 
 
 @pytest.fixture(autouse=True, scope="module")

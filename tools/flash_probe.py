@@ -171,11 +171,12 @@ def main_f32(card, old_dir, rounds):
             for n in (timed if r % 2 == 0 else timed[::-1]):
                 kernel._libs[F32] = libs[n]
                 row[n]["ms"].append(cs.cuda_ms(run, lead=True))
-        lib = cs.sdpa_call(q, k, v, mask)
+        lib_name, lib = cs.library_call(q, k, v, mask)
         pairs = {x: y for x, y in mask.items() if x != "softcap"}
         flops = kernel.attention_flops(B, Sq, Sk, N, H, **pairs)
         nbytes = kernel.attention_bytes(B, Sq, Sk, N, K, H, 4, **pairs)
-        row["sdpa_ms"] = None if lib is None else cs.cuda_ms(lib, lead=True)
+        row["library"], row["library_ms"] = lib_name, cs.cuda_ms(
+            lib, lead=True)
         row["fp32_bound_ms"], _, _, bytes_ms = rates.bound(flops, nbytes)
         row["split_tf32_ceiling_ms"] = max(
             bytes_ms, 1e3 * 3 * flops / cs.TF32_TENSOR_PER_S)
@@ -185,7 +186,7 @@ def main_f32(card, old_dir, rounds):
                   f"{n} refused" if "refused" in row[n] else
                   f"{n} {row[n]['ms']} ms (error "
                   f"{row[n]['max_abs_err']:.3e})" for n in names)
-              + f"; SDPA {row['sdpa_ms']} ms; FP32 bound "
+              + f"; {lib_name} {row['library_ms']} ms; FP32 bound "
               f"{row['fp32_bound_ms']:.4f} ms, split-TF32 ceiling "
               f"{row['split_tf32_ceiling_ms']:.4f} ms", flush=True)
         del q, k, v, want
