@@ -1,0 +1,9 @@
+"""Percent of the traced window in which no operation ran on the device:
+100 less the union of the device operations' intervals over the window's
+length."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0 or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

@@ -1,0 +1,10 @@
+"""Kernel #2 (pgd_epoch_ens): its share of its roofline over the traced
+window, percent: the summed bound of its launches (``costs/pgd_epoch_ens.py``,
+at the halvings the reference counted) over its summed device time
+in the trace."""
+from cics_bench.costs import pgd_epoch_ens as COST
+from cics_bench.costs import roofline
+
+
+def read(run):
+    return roofline.share(run, COST)
