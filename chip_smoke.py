@@ -114,8 +114,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    trace written to ``chiprun_out/telemetry_<path>.jsonl`` and read back,
    the per-scenario table, the CVaR tail in [1/8, 1] on the slice path;
    each path's day with and without telemetry (median of 3 rollouts) and
-   the launches it adds to a profiled day; ``profile_stages`` on the main
-   and closed-loop states; then ``core.fleet`` at 512 clusters:
+   the launches it adds to a profiled day; ``profile_stages`` (one day's
+   spans) on the main and closed-loop states, ``profile_setup`` (the
+   burn-in's and a warm-up day's spans) on the closed-loop path's
+   fleets; then ``core.fleet`` at 512 clusters:
    ``init_fleet`` and two ``day_cycle``s against the engine's burn-in and
    day steps of the same fleet, bit for bit (20 launches of #1 a day);
 6. serving path, carbon-aware serving at full published width in bf16
@@ -2582,7 +2584,8 @@ def phase_telemetry():
     telemetry-off run started from: the same states, ledgers and traj bit
     for bit, the same launches of #1-#3; the record checked on the card,
     exported and tabled; the overhead; the stage profiler on the main and
-    closed-loop states; a fleet day through ``core.fleet``."""
+    closed-loop states, the set-up profiler on the closed-loop fleets; a
+    fleet day through ``core.fleet``."""
     from repro_torch import sim
     print("[telemetry] each path's off and on runs from its burned-in state, "
           "with PyTorch's default algorithms (the campus sums add in a "
@@ -2629,11 +2632,22 @@ def phase_telemetry():
         run = RUNS[path]
         state = run["out"][0]
         rows = sim.profile_stages(run["cfg"].stage_config(), run["params"],
-                                  state, reps=3)
+                                  state)
         print(f"[telemetry] profile_stages on the {path} path's state "
-              f"(after its {run['days']} days; best of 3; device_ms from "
-              "CUDA events; launches of #1 / #2 / #3 a call):", flush=True)
+              f"(after its {run['days']} days; one day's spans by path, "
+              "host ms; launches of #1 / #2 / #3 / s_project inside each):",
+              flush=True)
         print(sim.format_stage_table(rows), flush=True)
+    run = RUNS["closed"]
+    _, rows = sim.profile_setup(run["cfg"], run["params"])
+    print("[telemetry] profile_setup on the closed-loop path: its burn-in "
+          "and a one-day warm-up, recorded (the kernels were loaded earlier "
+          "in this process, so no build span):", flush=True)
+    print(sim.format_stage_table(rows), flush=True)
+    paths = {r["path"] for r in rows}
+    if not {"burn_in/contracts", "burn_in/predictor_init",
+            "rollout/day/observe/observe_mpc"} <= paths:
+        raise AssertionError(f"[telemetry] profile_setup's spans: {paths}")
     phase_fleet()
 
 

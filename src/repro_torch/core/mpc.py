@@ -32,6 +32,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import admission, stats, vcc
 from repro_torch.core.admission import hour_sum
 
@@ -80,7 +81,8 @@ def mpc_day(prob: vcc.VCCProblem, sol: vcc.VCCSolution, tuf_fc, gate,
 
     Returns (DayResult, the enforced curve (B, n, 24), HourAccum, MPCDiag):
     the enforced curve is what admission saw hour by hour, which the SLO
-    detector must be held against, not the 00:00 plan."""
+    detector must be held against, not the 00:00 plan. Each hour's re-solve
+    is a ``suffix_solve`` span (``repro_torch.spans``)."""
     dev = prob.eta.device
     tau0 = prob.tau
     hours_f = torch.arange(24, dtype=f32, device=dev)
@@ -133,9 +135,10 @@ def mpc_day(prob: vcc.VCCProblem, sol: vcc.VCCSolution, tuf_fc, gate,
         pinned = acc.use_flex / tau24_new - 1.0
         scale = (tau / torch.clamp(tau_new, min=1e-9))[..., None]
         delta_warm = torch.where(rem, (1.0 + delta) * scale - 1.0, pinned)
-        sol_s = vcc.solve_vcc_suffix(p_now, delta_warm, mu, h + 1,
-                                     inner_iters=inner_iters,
-                                     outer_iters=outer_iters, device=dev)
+        with spans.span("suffix_solve"):
+            sol_s = vcc.solve_vcc_suffix(p_now, delta_warm, mu, h + 1,
+                                         inner_iters=inner_iters,
+                                         outer_iters=outer_iters, device=dev)
         accept = gate & trigger & sol_s.shaped
         delta_next = torch.where(accept[..., None], sol_s.delta, delta)
         # 6. recourse depth: mean |delta change| over the remaining hours

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels.vcc_pgd import ops as _ops
 from repro_torch.kernels.vcc_pgd import ref as _pgd_ref
 
@@ -183,14 +184,18 @@ def dual_ascent(inner, dual_update, x0, mu0, outer_iters: int,
     tensors a round; the return is then ``(x, mu, ys)``, each ys leaf
     stacked along a new rounds axis right after the batch dims of ``mu0``
     (..., n_dc): a per-cluster record (..., n) becomes (..., T, n). With
-    ``diag_fn=None`` the loop and its return are the two-value ones."""
+    ``diag_fn=None`` the loop and its return are the two-value ones.
+
+    Each round is a ``round`` span (``repro_torch.spans``); the inner
+    epochs count their ``steps`` on it."""
     x, mu = x0, mu0
     records = []
     for _ in range(outer_iters):
-        x_new = inner(x, mu)
-        mu = dual_update(x_new, mu)
-        if diag_fn is not None:
-            records.append(diag_fn(x, x_new, mu))
+        with spans.span("round"):
+            x_new = inner(x, mu)
+            mu = dual_update(x_new, mu)
+            if diag_fn is not None:
+                records.append(diag_fn(x, x_new, mu))
         x = x_new
     if diag_fn is None:
         return x, mu
@@ -202,6 +207,7 @@ def dual_ascent(inner, dual_update, x0, mu0, outer_iters: int,
 def pgd_epochs(prob, delta, mu, lo, ub, lr_eff, temp, iters: int):
     """``iters`` fused temporal PGD steps (gradient + exact projection):
     the hand-written kernel for CUDA tensors, the plain version on CPU."""
+    spans.count("steps", iters)
     return _ops.pgd_epoch(prob, delta, mu, lo, ub, lr_eff, temp, iters)
 
 
@@ -216,6 +222,7 @@ def joint_epochs(prob, delta, s, mu, lo_s, ub_s, lr_d, lr_s, temp,
     lays the round's fixed operands out once). delta (..., n, H);
     s/lo_s/ub_s (..., n); lr_d (..., n, 1); lr_s/temp per rollout (...).
     Returns (delta, s)."""
+    spans.count("steps", iters)
     step = _ops.joint_stepper(prob, delta.shape, mu, lo_s, ub_s, lr_d, lr_s,
                               temp)
     d, sv = delta, s

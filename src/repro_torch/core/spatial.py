@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch import spans
 from repro_torch.core import solver, vcc
 from repro_torch.core.vcc import VCCProblem, VCCSolution
 
@@ -46,11 +47,13 @@ def shift_bounds(p: VCCProblem, mobility) -> Tuple[torch.Tensor,
 
 
 def spatial_shift(p: VCCProblem, *, mobility=0.3):
-    """Greedy pre-shift: returns (tau_shifted (..., n), carbon_price)."""
-    price = carbon_price(p)
-    lo, ub = shift_bounds(p, mobility)
-    shift = solver.minimize_linear(price, lo, ub)
-    return torch.clamp(p.tau + shift, min=0.0), price
+    """Greedy pre-shift: returns (tau_shifted (..., n), carbon_price). A
+    call is a ``shift`` span (``repro_torch.spans``)."""
+    with spans.span("shift"):
+        price = carbon_price(p)
+        lo, ub = shift_bounds(p, mobility)
+        shift = solver.minimize_linear(price, lo, ub)
+        return torch.clamp(p.tau + shift, min=0.0), price
 
 
 def spatial_shift_batched(p: VCCProblem, *, mobility=0.3):
@@ -120,91 +123,95 @@ def solve_joint(p: VCCProblem, mobility, *, inner_iters: int = 80,
     4. Best-of safeguard, per rollout: the joint point is kept only if it
        weakly improves both the nominal objective and its carbon term over
        the warm start, both evaluated model-consistently
-       (``joint_objective`` / ``joint_carbon``)."""
-    dev = _device.resolve(device)
-    p = p.to(dev)
-    if not isinstance(mobility, torch.Tensor) and float(mobility) == 0.0:
-        sol = vcc.solve_vcc(p, inner_iters=inner_iters,
-                            outer_iters=outer_iters, lr=lr,
-                            temp_frac=temp_frac, rho=rho, device=dev,
-                            telemetry=telemetry)
-        best = BestOf(torch.zeros_like(p.lambda_e, dtype=torch.bool),
-                      torch.full_like(p.lambda_e, -torch.inf))
+       (``joint_objective`` / ``joint_carbon``).
+
+    A call is a ``solve_joint`` span (``repro_torch.spans``)."""
+    with spans.span("solve_joint"):
+        dev = _device.resolve(device)
+        p = p.to(dev)
+        if not isinstance(mobility, torch.Tensor) and float(mobility) == 0.0:
+            sol = vcc.solve_vcc(p, inner_iters=inner_iters,
+                                outer_iters=outer_iters, lr=lr,
+                                temp_frac=temp_frac, rho=rho, device=dev,
+                                telemetry=telemetry)
+            best = BestOf(torch.zeros_like(p.lambda_e, dtype=torch.bool),
+                          torch.full_like(p.lambda_e, -torch.inf))
+            if telemetry:
+                sol, diag = sol
+                diag["joint_winner"] = torch.zeros_like(p.lambda_e)
+                return sol, p.tau, torch.zeros_like(p.tau), best, diag
+            return sol, p.tau, torch.zeros_like(p.tau), best
+
+        mob = torch.as_tensor(mobility, dtype=f32, device=dev)
+        # 2. sequential two-phase warm start
+        tau_sh, _ = spatial_shift(p, mobility=mob)
+        sol_seq = vcc.solve_vcc(dataclasses.replace(p, tau=tau_sh),
+                                inner_iters=inner_iters,
+                                outer_iters=outer_iters, lr=lr,
+                                temp_frac=temp_frac, rho=rho, device=dev,
+                                telemetry=telemetry)
         if telemetry:
-            sol, diag = sol
-            diag["joint_winner"] = torch.zeros_like(p.lambda_e)
-            return sol, p.tau, torch.zeros_like(p.tau), best, diag
-        return sol, p.tau, torch.zeros_like(p.tau), best
+            sol_seq, diag_seq = sol_seq
+        lo_s, ub_s = shift_bounds(p, mob)
+        s0 = torch.clamp(tau_sh - p.tau, lo_s, ub_s)
 
-    mob = torch.as_tensor(mobility, dtype=f32, device=dev)
-    # 2. sequential two-phase warm start
-    tau_sh, _ = spatial_shift(p, mobility=mob)
-    sol_seq = vcc.solve_vcc(dataclasses.replace(p, tau=tau_sh),
-                            inner_iters=inner_iters, outer_iters=outer_iters,
-                            lr=lr, temp_frac=temp_frac, rho=rho, device=dev,
-                            telemetry=telemetry)
-    if telemetry:
-        sol_seq, diag_seq = sol_seq
-    lo_s, ub_s = shift_bounds(p, mob)
-    s0 = torch.clamp(tau_sh - p.tau, lo_s, ub_s)
+        # 3. joint refinement from (delta_seq, s0)
+        temp = solver.peak_temperature(p.pow_nom, temp_frac)
+        lr_d = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
+        # shift-gradient scale: g_s ~ lambda_e * mean_h(eta pi) + price pi / 24
+        g_norm = torch.clamp((p.lambda_e[..., None] * (p.eta * p.pi).mean(-1)
+                              + p.lambda_p[..., None] * p.pi.mean(-1) / 24.0
+                              ).amax(-1), min=1e-9)
+        lr_s_eff = lr_s * torch.clamp(p.tau.mean(-1), min=1e-6) / g_norm
 
-    # 3. joint refinement from (delta_seq, s0)
-    temp = solver.peak_temperature(p.pow_nom, temp_frac)
-    lr_d = solver.scaled_lr(lr, p.pi, p.tau, p.eta, p.lambda_e, p.lambda_p)
-    # shift-gradient scale: g_s ~ lambda_e * mean_h(eta pi) + price pi / 24
-    g_norm = torch.clamp((p.lambda_e[..., None] * (p.eta * p.pi).mean(-1)
-                          + p.lambda_p[..., None] * p.pi.mean(-1) / 24.0
-                          ).amax(-1), min=1e-9)
-    lr_s_eff = lr_s * torch.clamp(p.tau.mean(-1), min=1e-6) / g_norm
+        def inner(x, mu):
+            d, s = x
+            return solver.joint_epochs(p, d, s, mu, lo_s, ub_s, lr_d, lr_s_eff,
+                                       temp, joint_inner)
 
-    def inner(x, mu):
-        d, s = x
-        return solver.joint_epochs(p, d, s, mu, lo_s, ub_s, lr_d, lr_s_eff,
-                                   temp, joint_inner)
+        def dual_update(x, mu):
+            d, s = x
+            y = joint_power(p, d, s).amax(-1)
+            return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
+                                             rho)
 
-    def dual_update(x, mu):
-        d, s = x
-        y = joint_power(p, d, s).amax(-1)
-        return solver.campus_dual_update(mu, y, p.campus, p.campus_limit,
-                                         rho)
+        (d_j, s_j), mu_j = solver.dual_ascent(inner, dual_update,
+                                              (sol_seq.delta, s0), sol_seq.mu,
+                                              joint_outer)
 
-    (d_j, s_j), mu_j = solver.dual_ascent(inner, dual_update,
-                                          (sol_seq.delta, s0), sol_seq.mu,
-                                          joint_outer)
+        # 4. best-of safeguard, per rollout
+        obj_j, obj_q = joint_objective(p, d_j, s_j), \
+            joint_objective(p, sol_seq.delta, s0)
+        co2_j, co2_q = joint_carbon(p, d_j, s_j), \
+            joint_carbon(p, sol_seq.delta, s0)
+        take = (obj_j <= obj_q) & (co2_j <= co2_q)
+        margin = torch.minimum((obj_q - obj_j) / obj_q.abs(),
+                               (co2_q - co2_j) / co2_q.abs())
+        delta = torch.where(take[..., None, None], d_j, sol_seq.delta)
+        s = torch.where(take[..., None], s_j, s0)
+        mu = torch.where(take[..., None], mu_j, sol_seq.mu)
 
-    # 4. best-of safeguard, per rollout
-    obj_j, obj_q = joint_objective(p, d_j, s_j), \
-        joint_objective(p, sol_seq.delta, s0)
-    co2_j, co2_q = joint_carbon(p, d_j, s_j), joint_carbon(p, sol_seq.delta,
-                                                          s0)
-    take = (obj_j <= obj_q) & (co2_j <= co2_q)
-    margin = torch.minimum((obj_q - obj_j) / obj_q.abs(),
-                           (co2_q - co2_j) / co2_q.abs())
-    delta = torch.where(take[..., None, None], d_j, sol_seq.delta)
-    s = torch.where(take[..., None], s_j, s0)
-    mu = torch.where(take[..., None], mu_j, sol_seq.mu)
-
-    tau_j = torch.clamp(p.tau + s, min=0.0)
-    pf = dataclasses.replace(p, tau=tau_j)
-    _, _, feasible = vcc.delta_bounds(pf)
-    delta = torch.where(feasible[..., None], delta, 0.0)
-    y = joint_power(p, delta, s).amax(-1)
-    vcc_shaped = (pf.u_if + (1.0 + delta) * tau_j[..., None] / 24.0) \
-        * pf.ratio
-    cap = pf.capacity[..., None]
-    vcc_curve = torch.where(feasible[..., None],
-                            torch.minimum(vcc_shaped, cap),
-                            cap.expand_as(vcc_shaped))
-    sol = VCCSolution(delta=delta, y=y, vcc=vcc_curve, shaped=feasible,
-                      mu=mu, objective=joint_objective(p, delta, s, mu))
-    if telemetry:
-        diag = {"obj_cluster_traj": diag_seq["obj_cluster_traj"],
-                "step_max_traj": diag_seq["step_max_traj"],
-                **vcc.solution_diagnostics(pf, delta, mu,
-                                           temp_frac=temp_frac),
-                "joint_winner": take.to(f32)}
-        return sol, tau_j, s, BestOf(take, margin), diag
-    return sol, tau_j, s, BestOf(take, margin)
+        tau_j = torch.clamp(p.tau + s, min=0.0)
+        pf = dataclasses.replace(p, tau=tau_j)
+        _, _, feasible = vcc.delta_bounds(pf)
+        delta = torch.where(feasible[..., None], delta, 0.0)
+        y = joint_power(p, delta, s).amax(-1)
+        vcc_shaped = (pf.u_if + (1.0 + delta) * tau_j[..., None] / 24.0) \
+            * pf.ratio
+        cap = pf.capacity[..., None]
+        vcc_curve = torch.where(feasible[..., None],
+                                torch.minimum(vcc_shaped, cap),
+                                cap.expand_as(vcc_shaped))
+        sol = VCCSolution(delta=delta, y=y, vcc=vcc_curve, shaped=feasible,
+                          mu=mu, objective=joint_objective(p, delta, s, mu))
+        if telemetry:
+            diag = {"obj_cluster_traj": diag_seq["obj_cluster_traj"],
+                    "step_max_traj": diag_seq["step_max_traj"],
+                    **vcc.solution_diagnostics(pf, delta, mu,
+                                               temp_frac=temp_frac),
+                    "joint_winner": take.to(f32)}
+            return sol, tau_j, s, BestOf(take, margin), diag
+        return sol, tau_j, s, BestOf(take, margin)
 
 
 def solve_joint_batched(p: VCCProblem, mobility, **kw):

@@ -44,6 +44,7 @@ from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch import spans
 from repro_torch.core import (admission, carbon, forecast, mpc, power,
                               prng, risk, slo, solver, spatial, stats, vcc)
 
@@ -375,15 +376,17 @@ def build_problem_arrays(fc, eta_fc, power_fn, slope_fn, queue, u_pow_cap,
                          capacity, campus, campus_limit, lambda_e, lambda_p
                          ) -> vcc.VCCProblem:
     """Assemble the fleetwide VCC problem (risk-aware budget, eq. 3)."""
-    tau = fc["alpha"] * fc["tuf"] + queue
-    u_nom = fc["uif"] + tau[..., None] / 24.0
-    ratio = forecast.ratio_at(fc["ratio_a"][..., None],
-                              fc["ratio_b"][..., None], u_nom)
-    return vcc.VCCProblem(
-        eta=eta_fc, u_if=fc["uif"], u_if_q=fc["uif_q"], tau=tau,
-        pow_nom=power_fn(u_nom), pi=slope_fn(u_nom), u_pow_cap=u_pow_cap,
-        capacity=capacity, ratio=ratio, campus=campus,
-        campus_limit=campus_limit, lambda_e=lambda_e, lambda_p=lambda_p)
+    with spans.span("problem"):
+        tau = fc["alpha"] * fc["tuf"] + queue
+        u_nom = fc["uif"] + tau[..., None] / 24.0
+        ratio = forecast.ratio_at(fc["ratio_a"][..., None],
+                                  fc["ratio_b"][..., None], u_nom)
+        return vcc.VCCProblem(
+            eta=eta_fc, u_if=fc["uif"], u_if_q=fc["uif_q"], tau=tau,
+            pow_nom=power_fn(u_nom), pi=slope_fn(u_nom),
+            u_pow_cap=u_pow_cap, capacity=capacity, ratio=ratio,
+            campus=campus, campus_limit=campus_limit, lambda_e=lambda_e,
+            lambda_p=lambda_p)
 
 
 def optimize_stage(fc, eta_fc, model: PowerModel, queue, u_pow_cap,
@@ -501,7 +504,14 @@ def make_day_step(cfg: StageConfig):
 
     Returns step(params, state, xs) -> (state', StepOut) where xs holds this
     day's scenario-schedule slices (B, z) / (B, n) / (B, m), and (B, 24)
-    for the intraday channels when the scenarios carry them."""
+    for the intraday channels when the scenarios carry them.
+
+    Spans (``repro_torch.spans``), one a stage call: ``power``,
+    ``forecast``, ``carbon``, ``ensembles`` (K > 1), ``optimize``,
+    ``observe`` (around ``observe_mpc`` in the closed loop), ``slo``,
+    ``carry`` (the history rolls or the predictor update, and the new
+    state), ``record`` (telemetry only). The key folds, the intensity
+    gathers and the SLO gate between them belong to no stage."""
     if cfg.n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {cfg.n_members}")
     if cfg.streaming and cfg.n_members > 1:
@@ -521,18 +531,22 @@ def make_day_step(cfg: StageConfig):
         # power fit and load forecast; streaming: over the carry (its usage
         # ring IS the 28-day window the rescan fit slices)
         usage = state.pred.usage_ring if cfg.streaming else state.hist_usage
-        model = power_stage(usage, params.lam, truth["capacity"],
-                            pd_truth(params), prng.fold_in(day_key, 1))
-        if cfg.streaming:
-            fc = forecast_stage_streaming(state.pred, state.day, params.gamma)
-        else:
-            fc = forecast_stage(
-                state.hist_uif, state.hist_flex_daily, state.hist_res_daily,
-                state.hist_usage, state.hist_res, state.hist_tr_pred,
-                state.hist_uif_pred, params.gamma)
-        act_z, fc_z = carbon_stage(params.zone, state.carbon_hist,
-                                   prng.fold_in(day_key, 4),
-                                   xs["green_scale"], xs["coal_scale"])
+        with spans.span("power"):
+            model = power_stage(usage, params.lam, truth["capacity"],
+                                pd_truth(params), prng.fold_in(day_key, 1))
+        with spans.span("forecast"):
+            if cfg.streaming:
+                fc = forecast_stage_streaming(state.pred, state.day,
+                                              params.gamma)
+            else:
+                fc = forecast_stage(
+                    state.hist_uif, state.hist_flex_daily,
+                    state.hist_res_daily, state.hist_usage, state.hist_res,
+                    state.hist_tr_pred, state.hist_uif_pred, params.gamma)
+        with spans.span("carbon"):
+            act_z, fc_z = carbon_stage(params.zone, state.carbon_hist,
+                                       prng.fold_in(day_key, 4),
+                                       xs["green_scale"], xs["coal_scale"])
         # intraday forecast-busting: the ACTUAL intensity moves after the
         # day-ahead forecast is drawn (tomorrow's forecaster sees it)
         if "carbon_hour_scale" in xs:
@@ -542,15 +556,17 @@ def make_day_step(cfg: StageConfig):
         # forecast ensembles (K > 1 only: K = 1 is the point-forecast day)
         ens = None
         if cfg.n_members > 1:
-            ens = risk.day_ensembles(
-                prng.fold_in(day_key, 5), cfg.n_members, fc["uif"],
-                state.hist_uif_pred, state.hist_uif, fc_z,
-                state.carbon_hist, state.zmap, params.risk_beta)
-        prob, sol, best, *sdiag = optimize_stage(
-            fc, eta_fc, model, state.queue,
-            state.u_pow_cap * xs["cap_scale"], cap_day, state.campus,
-            state.campus_limit * xs["campus_scale"], params.lambda_e,
-            params.lambda_p, params.mobility, cfg=cfg, ens=ens)
+            with spans.span("ensembles"):
+                ens = risk.day_ensembles(
+                    prng.fold_in(day_key, 5), cfg.n_members, fc["uif"],
+                    state.hist_uif_pred, state.hist_uif, fc_z,
+                    state.carbon_hist, state.zmap, params.risk_beta)
+        with spans.span("optimize"):
+            prob, sol, best, *sdiag = optimize_stage(
+                fc, eta_fc, model, state.queue,
+                state.u_pow_cap * xs["cap_scale"], cap_day, state.campus,
+                state.campus_limit * xs["campus_scale"], params.lambda_e,
+                params.lambda_p, params.mobility, cfg=cfg, ens=ens)
         # SLO gate: paused clusters get VCC = machine capacity
         gate = state.shaping_allowed & sol.shaped
         vcc_curve = torch.where(gate[..., None], sol.vcc,
@@ -560,73 +576,81 @@ def make_day_step(cfg: StageConfig):
         # hour-by-hour enforced curve
         arr_hs = xs.get("arrival_hour_scale")
         acc = mdiag = None
-        if cfg.mpc:
-            res, cf, u_if, _, vcc_curve, acc, mdiag = observe_stage_mpc(
-                truth, state.day, day_key, prob, sol, fc, gate, cap_day,
-                xs["arrival_scale"], state.queue, state.cf_queue,
-                lambda u: model_power(model, u), eta_act,
-                allowance_frac=cfg.slo_allowance, arr_hour_scale=arr_hs)
-        else:
-            res, cf, u_if, _ = observe_stage(
-                truth, state.day, day_key, vcc_curve, cap_day,
-                xs["arrival_scale"], state.queue, state.cf_queue,
-                lambda u: model_power(model, u), eta_act,
-                allowance_frac=cfg.slo_allowance, arr_hour_scale=arr_hs)
-        slo_state = {"crowded_streak": state.crowded_streak,
-                     "pause_left": state.pause_left,
-                     "violation_days": state.violation_days,
-                     "observed_days": state.observed_days}
-        new_slo, allowed = slo_stage(slo_state, slo_cfg,
-                                     hour_sum(res.reservations),
-                                     hour_sum(vcc_curve), res.unmet,
-                                     res.arrived)
-        if cfg.streaming:
-            # absorb the day into the carry (errors pair same-day with the
-            # forecast issued above); with mpc through the hour-grain chain
+        with spans.span("observe"):
             if cfg.mpc:
-                pred = stats.hour_finalize(state.pred, acc, fc, state.day,
-                                           params.gamma)
+                with spans.span("observe_mpc"):
+                    res, cf, u_if, _, vcc_curve, acc, mdiag = \
+                        observe_stage_mpc(
+                            truth, state.day, day_key, prob, sol, fc, gate,
+                            cap_day, xs["arrival_scale"], state.queue,
+                            state.cf_queue, lambda u: model_power(model, u),
+                            eta_act, allowance_frac=cfg.slo_allowance,
+                            arr_hour_scale=arr_hs)
             else:
-                pred = stats.predictor_update(
-                    state.pred, fc, state.day, params.gamma, u_if,
-                    res.served, hour_sum(res.reservations),
-                    res.usage_total, res.reservations)
-            carry = dict(pred=pred)
-        else:
-            carry = dict(
-                hist_uif=roll(state.hist_uif, u_if),
-                hist_flex_daily=roll(state.hist_flex_daily, res.served),
-                hist_res_daily=roll(state.hist_res_daily,
-                                    hour_sum(res.reservations)),
-                hist_usage=roll(state.hist_usage, res.usage_total),
-                hist_res=roll(state.hist_res, res.reservations),
-                hist_tr_pred=roll(state.hist_tr_pred, fc["tr"]),
-                hist_uif_pred=roll(state.hist_uif_pred, fc["uif"]))
-        new_state = state._replace(
-            day=state.day + 1,
-            carbon_hist=roll(state.carbon_hist, act_z),
-            queue=res.queue_end,
-            cf_queue=cf.queue_end,
-            shaping_allowed=allowed,
-            **new_slo, **carry,
-        )
+                res, cf, u_if, _ = observe_stage(
+                    truth, state.day, day_key, vcc_curve, cap_day,
+                    xs["arrival_scale"], state.queue, state.cf_queue,
+                    lambda u: model_power(model, u), eta_act,
+                    allowance_frac=cfg.slo_allowance, arr_hour_scale=arr_hs)
+        with spans.span("slo"):
+            slo_state = {"crowded_streak": state.crowded_streak,
+                         "pause_left": state.pause_left,
+                         "violation_days": state.violation_days,
+                         "observed_days": state.observed_days}
+            new_slo, allowed = slo_stage(slo_state, slo_cfg,
+                                         hour_sum(res.reservations),
+                                         hour_sum(vcc_curve), res.unmet,
+                                         res.arrived)
+        with spans.span("carry"):
+            if cfg.streaming:
+                # absorb the day into the carry (errors pair same-day with
+                # the forecast issued above); with mpc through the
+                # hour-grain chain
+                if cfg.mpc:
+                    pred = stats.hour_finalize(state.pred, acc, fc,
+                                               state.day, params.gamma)
+                else:
+                    pred = stats.predictor_update(
+                        state.pred, fc, state.day, params.gamma, u_if,
+                        res.served, hour_sum(res.reservations),
+                        res.usage_total, res.reservations)
+                carry = dict(pred=pred)
+            else:
+                carry = dict(
+                    hist_uif=roll(state.hist_uif, u_if),
+                    hist_flex_daily=roll(state.hist_flex_daily, res.served),
+                    hist_res_daily=roll(state.hist_res_daily,
+                                        hour_sum(res.reservations)),
+                    hist_usage=roll(state.hist_usage, res.usage_total),
+                    hist_res=roll(state.hist_res, res.reservations),
+                    hist_tr_pred=roll(state.hist_tr_pred, fc["tr"]),
+                    hist_uif_pred=roll(state.hist_uif_pred, fc["uif"]))
+            new_state = state._replace(
+                day=state.day + 1,
+                carbon_hist=roll(state.carbon_hist, act_z),
+                queue=res.queue_end,
+                cf_queue=cf.queue_end,
+                shaping_allowed=allowed,
+                **new_slo, **carry,
+            )
         telem = None
         if cfg.telemetry:
             # the record observes the day: it reads the stage products
             # above and feeds nothing back
             from repro_torch.sim import telemetry as _telemetry
-            if cfg.streaming:
-                trail = {"uif": state.pred.uif_day_ring,
-                         "tuf": state.pred.flex_ring,
-                         "tr": state.pred.res_ring}
-            else:
-                trail = {"uif": hour_sum(state.hist_uif[:, :, -7:]),
-                         "tuf": state.hist_flex_daily[:, :, -7:],
-                         "tr": state.hist_res_daily[:, :, -7:]}
-            telem = _telemetry.day_telemetry(
-                sdiag[0], fc, res, u_if, vcc_curve,
-                pause_left=new_slo["pause_left"], shaped=sol.shaped,
-                trail=trail, recourse=mdiag)
+            with spans.span("record"):
+                if cfg.streaming:
+                    trail = {"uif": state.pred.uif_day_ring,
+                             "tuf": state.pred.flex_ring,
+                             "tr": state.pred.res_ring}
+                else:
+                    trail = {"uif": hour_sum(state.hist_uif[:, :, -7:]),
+                             "tuf": state.hist_flex_daily[:, :, -7:],
+                             "tr": state.hist_res_daily[:, :, -7:]}
+                telem = _telemetry.day_telemetry(
+                    sdiag[0], fc, res, u_if, vcc_curve,
+                    pause_left=new_slo["pause_left"], shaped=sol.shaped,
+                    trail=trail, recourse=mdiag)
         return new_state, StepOut(res=res, cf=cf, sol=sol,
                                   vcc_curve=vcc_curve, fc=fc, prob=prob,
                                   eta_act=eta_act, best=best,
@@ -692,60 +716,69 @@ def make_init(n_clusters: int, n_campuses: int, n_zones: int,
     warm-started from the burned-in windows (``stats.init_predictor``), the
     seven ``hist_*`` windows drop to zero-length stubs and ``carbon_hist``
     to its trailing 7 days: the carried state no longer grows with
-    ``hist_days``."""
+    ``hist_days``.
+
+    Spans: ``burn_in`` a call, around ``burn_in_day`` (each burn-in day),
+    ``contracts`` and, streaming, ``predictor_init``."""
     n, m, z, H = n_clusters, n_campuses, n_zones, hist_days
     if streaming and H < 7:
         raise ValueError(f"streaming init needs hist_days >= 7, got {H}")
     dev = _device.resolve(device)
 
     def init(params: SimParams) -> SimState:
-        params = map_tensors(lambda t: t.to(dev), params)
-        B = params.key.shape[0]
-        cap = params.truth["capacity"]
-        campus = (torch.arange(n, device=dev) % m).expand(B, n)
-        zeros = torch.zeros((B, n), dtype=torch.int64, device=dev)
+        with spans.span("burn_in"):
+            params = map_tensors(lambda t: t.to(dev), params)
+            B = params.key.shape[0]
+            cap = params.truth["capacity"]
+            campus = (torch.arange(n, device=dev) % m).expand(B, n)
+            zeros = torch.zeros((B, n), dtype=torch.int64, device=dev)
 
-        def hist(*shape):
-            return torch.zeros((B,) + shape, dtype=f32, device=dev)
+            def hist(*shape):
+                return torch.zeros((B,) + shape, dtype=f32, device=dev)
 
-        state = SimState(
-            day=torch.zeros((B,), dtype=torch.int64, device=dev),
-            campus=campus, zmap=campus % z, campus_limit=hist(m),
-            u_pow_cap=cap * 0.95,
-            hist_uif=hist(n, H, 24), hist_flex_daily=hist(n, H),
-            hist_res_daily=hist(n, H), hist_usage=hist(n, H, 24),
-            hist_res=hist(n, H, 24), hist_tr_pred=hist(n, H),
-            hist_uif_pred=hist(n, H, 24), carbon_hist=hist(z, H, 24),
-            queue=hist(n), cf_queue=hist(n), crowded_streak=zeros,
-            pause_left=zeros, violation_days=zeros, observed_days=zeros,
-            shaping_allowed=torch.ones((B, n), dtype=torch.bool, device=dev))
-        for _ in range(H):
-            state = burnin_step(params, state)
-        # zero-error prediction prior; honest quantiles build up in-horizon
-        state = state._replace(hist_tr_pred=state.hist_res_daily,
-                               hist_uif_pred=state.hist_uif)
-        # campus contracts: 97% of fitted-model campus peak over last week
-        model = power_stage(state.hist_usage, params.lam, cap,
-                            pd_truth(params),
-                            prng.fold_in(params.key, 999))
-        upow = model_power(model, state.hist_usage[:, :, -7:].reshape(
-            B, n, -1))
-        limit = solver.segment_sum(upow.amax(-1), campus, m) * 0.97
-        state = state._replace(campus_limit=limit)
-        if streaming:
-            pred = stats.init_predictor(
-                state.hist_uif, state.hist_flex_daily, state.hist_res_daily,
-                state.hist_usage, state.hist_res, state.hist_tr_pred,
-                state.hist_uif_pred, state.day, params.gamma)
-            state = state._replace(
-                pred=pred,
-                # carbon_stage's forecast reads only the trailing 7 days
-                # (carbon.forecast_day_ahead): the same forecasts
-                carbon_hist=state.carbon_hist[:, :, -stats.WEEK:].clone(),
-                hist_uif=hist(n, 0, 24), hist_flex_daily=hist(n, 0),
-                hist_res_daily=hist(n, 0), hist_usage=hist(n, 0, 24),
-                hist_res=hist(n, 0, 24), hist_tr_pred=hist(n, 0),
-                hist_uif_pred=hist(n, 0, 24))
-        return state
+            state = SimState(
+                day=torch.zeros((B,), dtype=torch.int64, device=dev),
+                campus=campus, zmap=campus % z, campus_limit=hist(m),
+                u_pow_cap=cap * 0.95,
+                hist_uif=hist(n, H, 24), hist_flex_daily=hist(n, H),
+                hist_res_daily=hist(n, H), hist_usage=hist(n, H, 24),
+                hist_res=hist(n, H, 24), hist_tr_pred=hist(n, H),
+                hist_uif_pred=hist(n, H, 24), carbon_hist=hist(z, H, 24),
+                queue=hist(n), cf_queue=hist(n), crowded_streak=zeros,
+                pause_left=zeros, violation_days=zeros, observed_days=zeros,
+                shaping_allowed=torch.ones((B, n), dtype=torch.bool,
+                                           device=dev))
+            for _ in range(H):
+                with spans.span("burn_in_day"):
+                    state = burnin_step(params, state)
+            # zero-error prediction prior; honest quantiles build up in-horizon
+            state = state._replace(hist_tr_pred=state.hist_res_daily,
+                                   hist_uif_pred=state.hist_uif)
+            # campus contracts: 97% of fitted-model campus peak over last week
+            with spans.span("contracts"):
+                model = power_stage(state.hist_usage, params.lam, cap,
+                                    pd_truth(params),
+                                    prng.fold_in(params.key, 999))
+                upow = model_power(model, state.hist_usage[:, :, -7:].reshape(
+                    B, n, -1))
+                limit = solver.segment_sum(upow.amax(-1), campus, m) * 0.97
+            state = state._replace(campus_limit=limit)
+            if streaming:
+                with spans.span("predictor_init"):
+                    pred = stats.init_predictor(
+                        state.hist_uif, state.hist_flex_daily,
+                        state.hist_res_daily, state.hist_usage, state.hist_res,
+                        state.hist_tr_pred, state.hist_uif_pred, state.day,
+                        params.gamma)
+                state = state._replace(
+                    pred=pred,
+                    # carbon_stage's forecast reads only the trailing 7 days
+                    # (carbon.forecast_day_ahead): the same forecasts
+                    carbon_hist=state.carbon_hist[:, :, -stats.WEEK:].clone(),
+                    hist_uif=hist(n, 0, 24), hist_flex_daily=hist(n, 0),
+                    hist_res_daily=hist(n, 0), hist_usage=hist(n, 0, 24),
+                    hist_res=hist(n, 0, 24), hist_tr_pred=hist(n, 0),
+                    hist_uif_pred=hist(n, 0, 24))
+            return state
 
     return init

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import spans
 from repro_torch.core import prng, solver
 from repro_torch.core.admission import hour_sum
 from repro_torch.kernels.vcc_pgd import ref as _pgd_ref
@@ -199,27 +200,29 @@ def solve_vcc(p: VCCProblem, *, inner_iters: int = 80, outer_iters: int = 20,
     kept (``dual_ascent``'s ``diag_fn``) and both trajectories evaluated
     once over the rounds axis: the values of a per-round evaluation, bit
     for bit (elementwise ops and ordered hour sums), in ~35 launches a
-    solve instead of ~35 a round."""
-    if p.eta_ens is not None and p.eta_ens.shape[-3] == 1:
-        p = dataclasses.replace(p, eta_ens=None, pow_nom_ens=None)
-    p = p.to(_device.resolve(device))
-    lo, ub, feasible = delta_bounds(p)
-    # neutralize infeasible clusters: bounds collapse to {0}
-    lo = torch.where(feasible[..., None], lo, 0.0)
-    ub = torch.where(feasible[..., None], ub, 0.0)
-    delta0 = torch.zeros_like(p.eta)
-    out = _descend(p, lo, ub, delta0, torch.zeros_like(p.campus_limit),
-                   inner_iters, outer_iters, lr, temp_frac, rho,
-                   diag_fn=_keep_delta if telemetry else None)
-    sol = _solution(p, out[0], out[1], feasible)
-    if not telemetry:
-        return sol
-    rounds = out[2]["delta"]                      # (..., T, n, H)
-    prev = torch.cat([delta0.unsqueeze(-3), rounds[..., :-1, :, :]], -3)
-    return sol, {"obj_cluster_traj": _round_objectives(p, rounds),
-                 "step_max_traj": torch.abs(rounds - prev).amax(-1),
-                 **solution_diagnostics(p, sol.delta, sol.mu,
-                                        temp_frac=temp_frac)}
+    solve instead of ~35 a round. A call is a ``solve_vcc`` span
+    (``repro_torch.spans``)."""
+    with spans.span("solve_vcc"):
+        if p.eta_ens is not None and p.eta_ens.shape[-3] == 1:
+            p = dataclasses.replace(p, eta_ens=None, pow_nom_ens=None)
+        p = p.to(_device.resolve(device))
+        lo, ub, feasible = delta_bounds(p)
+        # neutralize infeasible clusters: bounds collapse to {0}
+        lo = torch.where(feasible[..., None], lo, 0.0)
+        ub = torch.where(feasible[..., None], ub, 0.0)
+        delta0 = torch.zeros_like(p.eta)
+        out = _descend(p, lo, ub, delta0, torch.zeros_like(p.campus_limit),
+                       inner_iters, outer_iters, lr, temp_frac, rho,
+                       diag_fn=_keep_delta if telemetry else None)
+        sol = _solution(p, out[0], out[1], feasible)
+        if not telemetry:
+            return sol
+        rounds = out[2]["delta"]                      # (..., T, n, H)
+        prev = torch.cat([delta0.unsqueeze(-3), rounds[..., :-1, :, :]], -3)
+        return sol, {"obj_cluster_traj": _round_objectives(p, rounds),
+                     "step_max_traj": torch.abs(rounds - prev).amax(-1),
+                     **solution_diagnostics(p, sol.delta, sol.mu,
+                                            temp_frac=temp_frac)}
 
 
 def _keep_delta(d_prev, d_new, mu_new):

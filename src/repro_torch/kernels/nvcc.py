@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import spans
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,25 +46,31 @@ def build(source: Path, headers=(), flags=FLAGS, verbose: bool = False):
     """Compile ``source`` with ``flags`` into ``build/`` unless that exact
     source, headers and flags are already built; ``verbose=True`` always
     compiles, with ``-Xptxas -v``, to report registers and spills. Returns
-    (library path, seconds, nvcc output); raises on a failed build."""
-    digest = hashlib.sha1(b"".join(
-        Path(p).read_bytes() for p in (source, *headers))
-        + " ".join(flags).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"{Path(source).stem}-{digest}.so"
-    if lib.exists() and not verbose:
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {Path(source).name} "
-                           f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, secs, proc.stdout + proc.stderr
+    (library path, seconds, nvcc output); raises on a failed build. A call
+    is a ``build`` span (``repro_torch.spans``) that counts ``built`` or
+    ``cached``."""
+    with spans.span("build"):
+        digest = hashlib.sha1(b"".join(
+            Path(p).read_bytes() for p in (source, *headers))
+            + " ".join(flags).encode()).hexdigest()[:12]
+        lib = BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+        if lib.exists() and not verbose:
+            spans.count("cached")
+            return lib, 0.0, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *flags, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {Path(source).name} ({proc.returncode}):"
+                f"\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+        spans.count("built")
+        return lib, secs, proc.stdout + proc.stderr
 
 
 def load(path: Path, entry: str, sig: str):

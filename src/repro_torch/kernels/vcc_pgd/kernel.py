@@ -32,8 +32,10 @@ or loaded when this module is imported, so the CPU tests import it without
 Each ``*_cuda`` wrapper launches on ``torch.cuda.current_stream()`` and adds
 one to its ``launches`` attribute per launch (kernel #3's two routes count
 on ``joint_step_cuda.launches``, and by route on ``joint_step_cuda.routes``;
-the split route's shift update on ``s_project_cuda.launches``). Beside each
-wrapper,
+the split route's shift update on ``s_project_cuda.launches``); while
+``repro_torch.spans`` records, each launch also counts
+``launch.<kernel>`` with its sizes on the innermost open span (the route
+only on ``.routes``). Beside each wrapper,
 ``*_flops`` and ``*_bytes`` count the function's work (the bound in
 ``chip_smoke.py`` and PERF.md comes from them) and ``*_shuffles`` the warp
 shuffles its source issues (the shuffle-issue floor).
@@ -45,6 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -159,6 +162,7 @@ def pgd_epoch_cuda(delta, eta, pi, pow_nom, tau24, price, lo, ub, lr, temp,
     _launch("pgd_epoch", delta, delta, eta, pi, pow_nom, tau24, price, lo, ub,
             lr, temp, lambda_e, out, rows, H, int(iters), int(proj_iters))
     pgd_epoch_cuda.launches += 1
+    spans.count("launch.pgd_epoch", rows=rows, H=H, iters=int(iters))
     return out
 
 
@@ -233,6 +237,8 @@ def pgd_epoch_ens_cuda(delta, eta_e, pi, pow_e, tau24, price, lo, ub, lr,
             ub, lr, temp, lambda_e, risk_s, out, rows, H, n, K, int(iters),
             int(proj_iters))
     pgd_epoch_ens_cuda.launches += 1
+    spans.count("launch.pgd_epoch_ens", rows=rows, H=H, K=K,
+                iters=int(iters))
     return out
 
 
@@ -358,6 +364,7 @@ def joint_step_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
             rows, H, *_drop_args(drop_limit), int(proj_iters))
     joint_step_cuda.launches += 1
     joint_step_cuda.routes["split"] += 1
+    spans.count("launch.joint_step", rows=rows, H=H)
     return d_out, gs_out
 
 
@@ -384,6 +391,7 @@ def s_project_cuda(s, g_s, lr_s, lo_s, ub_s, *, n: int, proj_iters: int = 50,
     _launch("s_project", s, s, g_s, lr_s, lo_s, ub_s, out,
             _nu_out(nu_out, B, s.device), B, int(n), int(proj_iters))
     s_project_cuda.launches += 1
+    spans.count("launch.s_project", B=B, n=int(n))
     return out
 
 
@@ -426,6 +434,7 @@ def joint_step_s_cuda(d, s, eta, pi, pow_nom, tau, u_if, u_if_q, ratio,
             int(n), C, R, H, *_drop_args(drop_limit), int(proj_iters))
     joint_step_cuda.launches += 1
     joint_step_cuda.routes["fused"] += 1
+    spans.count("launch.joint_step", rows=rows, H=H, n=int(n))
     return d_out, s_out
 
 

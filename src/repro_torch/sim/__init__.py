@@ -2,7 +2,8 @@
 libraries (``scenarios``), the batched rollout engine over a
 (scenario x seed) axis (``engine``), the emissions ledger with its unshaped
 counterfactual (``ledger``), per-scenario reporting (``report``) and the
-telemetry layer (``telemetry``)."""
+telemetry layer (``telemetry``: the day's diagnostics record and the
+span-based stage table of ``repro_torch.spans``)."""
 from repro_torch.sim.engine import (SimConfig, SimParams, SimState,
                                     make_day_step, make_init, make_rollout,
                                     rollout_batch, rollout_batch_sharded,
@@ -23,7 +24,8 @@ from repro_torch.sim.scenarios import (MOBILITY_SWEEP, RISK_BETAS,
                                        risk_sweep_library)
 from repro_torch.sim.telemetry import (TRACE_FIELDS, DayTelemetry,
                                        day_telemetry, format_stage_table,
-                                       profile_stages, read_jsonl,
+                                       profile_setup, profile_stages,
+                                       read_jsonl, stage_rows,
                                        telemetry_records, write_jsonl)
 
 __all__ = [
@@ -39,5 +41,6 @@ __all__ = [
     "telemetry_rows", "MOBILITY_COLUMNS", "MPC_COLUMNS", "RISK_COLUMNS",
     "TELEMETRY_COLUMNS",
     "DayTelemetry", "day_telemetry", "telemetry_records", "write_jsonl",
-    "read_jsonl", "profile_stages", "format_stage_table", "TRACE_FIELDS",
+    "read_jsonl", "stage_rows", "profile_stages", "profile_setup",
+    "format_stage_table", "TRACE_FIELDS",
 ]

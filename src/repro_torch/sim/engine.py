@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import device as _device
+from repro_torch import spans
 from repro_torch.core import stages
 from repro_torch.core.stages import SimParams, SimState, StepOut  # noqa: F401
 from repro_torch.core.stages import hour_sum as _hsum
@@ -101,42 +102,50 @@ def make_rollout(cfg: SimConfig, days: int, on_day=None):
     With ``cfg.telemetry`` the traj also holds ``"telemetry"``: the days'
     records stacked on axis 1, leaves (B, days, ...); otherwise its keys
     are the five totals alone. ``on_day(d, state, StepOut)``, if given,
-    sees the state after every day and its output; it is first called
-    with ``d = -1`` and ``None`` for the state the rollout starts from."""
+    sees the state after every day and its output, after the day's ledger
+    update; it is first called with ``d = -1`` and ``None`` for the state
+    the rollout starts from.
+
+    Spans (``repro_torch.spans``): ``rollout`` a call; ``day`` the day
+    step, the day's metrics and its ledger update, not ``on_day``;
+    ``ledger`` the ledger update alone."""
     step = make_day_step(cfg)
 
     def rollout(params: SimParams, state: SimState):
-        horizon = params.cap_scale.shape[1]
-        if horizon < days:
-            raise ValueError(
-                f"params schedules cover {horizon} days but the rollout "
-                f"asks for {days}; rebuild with build_batch(..., "
-                f"days>={days})")
-        if on_day is not None:
-            on_day(-1, state, None)
-        B = params.key.shape[0]
-        ledger = init_ledger(B, cfg.n_clusters, device=params.key.device)
-        traj = {k: [] for k in ("carbon_kg", "cf_carbon_kg", "kwh",
-                                "peak_kw", "queue")}
-        records = []
-        for d in range(days):
-            state, out = step(params, state, day_xs(params, d))
+        with spans.span("rollout"):
+            horizon = params.cap_scale.shape[1]
+            if horizon < days:
+                raise ValueError(
+                    f"params schedules cover {horizon} days but the rollout "
+                    f"asks for {days}; rebuild with build_batch(..., "
+                    f"days>={days})")
             if on_day is not None:
-                on_day(d, state, out)
-            m = _metrics(out.res, out.cf)
-            ledger = ledger_update(ledger, m)
-            traj["carbon_kg"].append(_hsum(m.carbon_kg))
-            traj["cf_carbon_kg"].append(_hsum(m.cf_carbon_kg))
-            traj["kwh"].append(_hsum(m.kwh))
-            traj["peak_kw"].append(_hsum(m.peak_kw))
-            traj["queue"].append(_hsum(m.queue_end))
+                on_day(-1, state, None)
+            B = params.key.shape[0]
+            ledger = init_ledger(B, cfg.n_clusters, device=params.key.device)
+            traj = {k: [] for k in ("carbon_kg", "cf_carbon_kg", "kwh",
+                                    "peak_kw", "queue")}
+            records = []
+            for d in range(days):
+                with spans.span("day"):
+                    state, out = step(params, state, day_xs(params, d))
+                    m = _metrics(out.res, out.cf)
+                    with spans.span("ledger"):
+                        ledger = ledger_update(ledger, m)
+                    traj["carbon_kg"].append(_hsum(m.carbon_kg))
+                    traj["cf_carbon_kg"].append(_hsum(m.cf_carbon_kg))
+                    traj["kwh"].append(_hsum(m.kwh))
+                    traj["peak_kw"].append(_hsum(m.peak_kw))
+                    traj["queue"].append(_hsum(m.queue_end))
+                    if cfg.telemetry:
+                        records.append(out.telemetry)
+                if on_day is not None:
+                    on_day(d, state, out)
+            traj = {k: torch.stack(v, dim=1) for k, v in traj.items()}
             if cfg.telemetry:
-                records.append(out.telemetry)
-        traj = {k: torch.stack(v, dim=1) for k, v in traj.items()}
-        if cfg.telemetry:
-            traj["telemetry"] = stages.zip_tensors(
-                lambda ts: torch.stack(ts, dim=1), records)
-        return state, ledger, traj
+                traj["telemetry"] = stages.zip_tensors(
+                    lambda ts: torch.stack(ts, dim=1), records)
+            return state, ledger, traj
 
     return rollout
 

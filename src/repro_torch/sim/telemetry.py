@@ -19,25 +19,24 @@ diagnostics record, its trace export and per-stage cost attribution.
   a rollout's stacked records (B, days, ...) moved to the host once and
   flattened into one JSON record per scenario x seed x day, the cluster
   axes reduced there.
-* **Stage cost attribution** (``profile_stages``, ``format_stage_table``):
-  each stage timed alone (best of reps on the host clock, and on the
-  card its CUDA-event time), with the FLOPs and bytes of its matmul-family
-  ATen ops and its launches of kernels #1-#3 a call.
+* **Stage cost attribution** (``stage_rows``, ``profile_stages``,
+  ``profile_setup``, ``format_stage_table``): the spans of a real day, or
+  of a burn-in and warm-up (``repro_torch.spans``), by path, each with its
+  host and self time, its share of the whole, the launches of kernels
+  #1-#3 inside it with their sizes, its solver rounds and steps and its
+  kernel builds.
 """
 from __future__ import annotations
 
 import json
-import time
 from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import flop_registry
 
-from repro_torch.core import prng, risk, stages
+from repro_torch import spans
+from repro_torch.core import stages
 from repro_torch.core.admission import hour_sum
-from repro_torch.kernels.vcc_pgd import kernel as _pgd_kernel
 
 f32 = torch.float32
 
@@ -253,181 +252,155 @@ def read_jsonl(path) -> List[Dict[str, object]]:
 
 # --------------------------------------------------- stage cost attribution
 
-class DotCounter(TorchDispatchMode):
-    """Counts the matmul-family ATen ops a call dispatches: their FLOPs by
-    ``torch.utils.flop_counter``'s formulas (``flop_registry``, the table
-    ``FlopCounterMode`` counts with) and their operand and result bytes.
-    ``FlopCounterMode`` itself re-dispatches every other op through its
-    decomposition, about 10x a CPU day step's time; this mode runs every
-    other op as it is."""
-
-    def __init__(self):
-        super().__init__()
-        self.flops = 0
-        self.nbytes = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        count = flop_registry.get(func.overloadpacket)
-        if count is not None:
-            self.flops += count(*args, **kwargs, out_val=out)
-            tensors = []
-            stages.map_tensors(tensors.append, (list(args), out))
-            self.nbytes += sum(t.numel() * t.element_size()
-                               for t in tensors)
-        return out
+# kernels #1, #2, #3 and #3's split-route shift update, by the
+# ``launch.<kernel>`` counters their wrappers keep while spans record
+# (kernels/vcc_pgd/kernel.py)
+KERNEL_COUNTERS = ("launch.pgd_epoch", "launch.pgd_epoch_ens",
+                   "launch.joint_step", "launch.s_project")
 
 
-def _launches():
-    """Launches of kernels #1, #2 and #3 so far."""
-    return (_pgd_kernel.pgd_epoch_cuda.launches,
-            _pgd_kernel.pgd_epoch_ens_cuda.launches,
-            _pgd_kernel.joint_step_cuda.launches)
+def stage_rows(rec: spans.Recorder, root="day") -> List[Dict[str, object]]:
+    """One row per span path under the recorder's ``root`` spans (under
+    every top-level span with ``root=None``), in tree order.
+
+    A span's path is its ancestors' names and its own from the root down,
+    so spans of one name under different parents (the rounds of a
+    ``solve_vcc`` and of a ``suffix_solve``) are different rows, and a
+    row's time holds its children's. Each row: ``path``
+    ("day/optimize/solve_vcc"), ``stage`` (the span's name), ``depth`` (0
+    at the roots), ``calls``; ``host_ms`` and ``self_ms`` (host time less
+    the children's), summed over the path's spans; ``pct``, ``host_ms`` as
+    a share of the roots'; and inside the path's spans, their own
+    included: ``launches`` of each of ``KERNEL_COUNTERS``, ``sizes`` (each
+    launch's sizes, by counter), ``rounds`` (``round`` spans), ``steps``
+    (their inner steps) and ``builds`` (kernel builds: compiled, found
+    built)."""
+    S = rec.spans
+    kids = rec.children()
+    tops = [i for i, s in enumerate(S)
+            if (s.parent < 0 if root is None else
+                s.name == root and all(S[a].name != root
+                                       for a in rec.ancestors(i)))]
+    rows: Dict[tuple, Dict[str, object]] = {}
+    under: Dict[tuple, List[tuple]] = {}
+
+    def visit(i: int, chain: List[Dict[str, object]], path: tuple):
+        sp = S[i]
+        path = path + (sp.name,)
+        r = rows.get(path)
+        if r is None:
+            r = rows[path] = {
+                "path": "/".join(path), "stage": sp.name,
+                "depth": len(path) - 1, "calls": 0, "host_ms": 0.0,
+                "self_ms": 0.0, "launches": [0] * len(KERNEL_COUNTERS),
+                "sizes": {}, "rounds": 0, "steps": 0, "builds": [0, 0]}
+            under.setdefault(path[:-1], []).append(path)
+        r["calls"] += 1
+        r["host_ms"] += sp.host_ns * 1e-6
+        r["self_ms"] += rec.self_ns(i, kids) * 1e-6
+        chain = chain + [r]
+        for a in chain:
+            a["rounds"] += sp.name == "round"
+            a["steps"] += sp.counts.get("steps", 0)
+            a["builds"][0] += sp.counts.get("built", 0)
+            a["builds"][1] += sp.counts.get("cached", 0)
+            for k, key in enumerate(KERNEL_COUNTERS):
+                a["launches"][k] += sp.counts.get(key, 0)
+                for size in sp.sizes.get(key, ()):
+                    a["sizes"].setdefault(key, []).append(size)
+        for j in kids[i]:
+            visit(j, chain, path)
+
+    for i in tops:
+        visit(i, [], ())
+    total = sum(S[i].host_ns for i in tops) * 1e-6
+    out: List[Dict[str, object]] = []
+
+    def emit(path: tuple):
+        r = rows[path]
+        r["launches"], r["builds"] = tuple(r["launches"]), tuple(r["builds"])
+        r["pct"] = 100.0 * r["host_ms"] / max(total, 1e-12)
+        out.append(r)
+        for p in under.get(path, ()):
+            emit(p)
+
+    for p in under.get((), ()):
+        emit(p)
+    return out
 
 
-def _time_stage(fn, args, reps: int, on_card: bool):
-    """One row's numbers for ``fn(*args)``: a first call under the counter
-    (the warm-up; its dot FLOPs and bytes, and the launches it made), then
-    the best of ``reps`` calls on the host clock (synchronized on the card)
-    and on CUDA events."""
-    before = _launches()
-    with DotCounter() as dots:
-        fn(*args)
-    launches = tuple(a - b for a, b in zip(_launches(), before))
-    wall = dev = float("inf")
-    for _ in range(reps):
-        if on_card:
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        fn(*args)
-        if on_card:
-            end.record()
-            torch.cuda.synchronize()
-            dev = min(dev, start.elapsed_time(end))
-        wall = min(wall, time.perf_counter() - t0)
-    return {"wall_ms": wall * 1e3, "device_ms": dev if on_card else None,
-            "dot_flops": dots.flops, "dot_bytes": dots.nbytes,
-            "launches": launches}
+def profile_stages(cfg: stages.StageConfig, params, state
+                   ) -> List[Dict[str, object]]:
+    """Where one real day's host time goes, from its spans: the day step of
+    ``cfg`` from ``(params, state)`` (a burned-in ``SimState``) at nominal
+    scenario slices, run once under ``spans.recording()`` inside a ``day``
+    span, on the state's device; ``stage_rows`` of the recording.
 
-
-def profile_stages(cfg: stages.StageConfig, params, state,
-                   reps: int = 3) -> List[Dict[str, object]]:
-    """Attribute the day cycle's cost to its stages at the shapes of
-    ``(params, state)`` (a burned-in ``SimState``), on their device.
-
-    Returns rows {stage, wall_ms, pct, dot_flops, dot_bytes, device_ms,
-    launches} for power_fit, forecast (the streaming forecast for a
-    streaming state), carbon, optimize, observe, and a last ``day_step``
-    row for the whole step (its ``pct`` against the same stage sum).
-    ``wall_ms`` is the best of ``reps`` on the host clock, synchronized
-    before each start and stop on the card; ``device_ms`` the best CUDA-
-    event time of the same calls (None on the CPU); ``pct`` a share of the
-    summed stage wall times; ``dot_flops`` and ``dot_bytes`` the matmul-
-    family FLOPs and bytes of one call (``DotCounter``); ``launches`` the
-    call's launches of kernels #1, #2 and #3."""
+    A span's time is the host's: where a stage synchronises with the
+    device (the power stage's blocking copies do), it holds the wait for
+    the device work queued before it, its own and earlier stages'. The
+    device's own time by span comes from a profiled run
+    (``tools/span_probe.py``)."""
     dev = state.queue.device
-    on_card = dev.type == "cuda"
     B, n = state.queue.shape
     m = state.campus_limit.shape[-1]
     z = state.carbon_hist.shape[1]
     xs = stages.ones_xs(B, n, m, z, device=dev)
-    day_key = prng.fold_in(params.key, state.day)
-    pdt = stages.pd_truth(params)
-    cap = params.truth["capacity"]
-    hist_usage = state.pred.usage_ring if cfg.streaming else state.hist_usage
+    step = stages.make_day_step(cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with spans.recording() as rec:
+        with spans.span("day"):
+            step(params, state, xs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return stage_rows(rec)
 
-    def power_fn(hist, key):
-        return stages.power_stage(hist, params.lam, cap, pdt, key)
 
-    if cfg.streaming:
-        def forecast_fn(day, gamma):
-            return stages.forecast_stage_streaming(state.pred, day, gamma)
-        forecast_args = (state.day, params.gamma)
-    else:
-        forecast_fn = stages.forecast_stage
-        forecast_args = (state.hist_uif, state.hist_flex_daily,
-                         state.hist_res_daily, state.hist_usage,
-                         state.hist_res, state.hist_tr_pred,
-                         state.hist_uif_pred, params.gamma)
-
-    def carbon_fn(hist, key):
-        return stages.carbon_stage(params.zone, hist, key,
-                                   xs["green_scale"], xs["coal_scale"])
-
-    # the downstream stages' inputs
-    model = power_fn(hist_usage, prng.fold_in(day_key, 1))
-    fc = forecast_fn(*forecast_args)
-    act_z, fc_z = carbon_fn(state.carbon_hist, prng.fold_in(day_key, 4))
-    eta_act = stages.take(act_z, state.zmap)
-    eta_fc = stages.take(fc_z, state.zmap)
-    ens = None
-    if cfg.n_members > 1:
-        ens = risk.day_ensembles(
-            prng.fold_in(day_key, 5), cfg.n_members, fc["uif"],
-            state.hist_uif_pred, state.hist_uif, fc_z, state.carbon_hist,
-            state.zmap, params.risk_beta)
-
-    def optimize_fn(fcv, eta, queue, u_pow_cap, cap_day, campus_limit):
-        return stages.optimize_stage(
-            fcv, eta, model, queue, u_pow_cap, cap_day, state.campus,
-            campus_limit, params.lambda_e, params.lambda_p, params.mobility,
-            cfg=cfg, ens=ens)
-
-    sol = optimize_fn(fc, eta_fc, state.queue, state.u_pow_cap, cap,
-                      state.campus_limit)[1]
-    gate = state.shaping_allowed & sol.shaped
-    vcc_curve = torch.where(gate[..., None], sol.vcc, cap[..., None] * 10.0)
-
-    def observe_fn(curve, cap_day, queue, cf_queue, eta):
-        return stages.observe_stage(
-            params.truth, state.day, day_key, curve, cap_day,
-            xs["arrival_scale"], queue, cf_queue,
-            lambda u: stages.model_power(model, u), eta)
-
-    entries = [
-        ("power_fit", power_fn, (hist_usage, prng.fold_in(day_key, 1))),
-        ("forecast", forecast_fn, forecast_args),
-        ("carbon", carbon_fn,
-         (state.carbon_hist, prng.fold_in(day_key, 4))),
-        ("optimize", optimize_fn,
-         (fc, eta_fc, state.queue, state.u_pow_cap, cap,
-          state.campus_limit)),
-        ("observe", observe_fn,
-         (vcc_curve, cap, state.queue, state.cf_queue, eta_act)),
-        ("day_step", stages.make_day_step(cfg), (params, state, xs)),
-    ]
-    rows = [{"stage": name, **_time_stage(fn, args, reps, on_card)}
-            for name, fn, args in entries]
-    stage_total = sum(r["wall_ms"] for r in rows[:-1])
-    for r in rows:
-        r["pct"] = 100.0 * r["wall_ms"] / max(stage_total, 1e-9)
-    return rows
+def profile_setup(cfg, params, device=None):
+    """Where a rollout's set-up goes, from its spans: ``make_init(cfg)``
+    (the ``burn_in`` span: its ``burn_in_day`` spans, ``contracts``,
+    streaming ``predictor_init``) and a one-day ``make_rollout`` from the
+    burned-in state (a ``rollout`` span), as a benchmark warms up, run once
+    under ``spans.recording()`` on ``device``. Returns (the burned-in
+    state, ``stage_rows`` of every top-level span). A kernel's first
+    launch in a process loads it: a ``build`` span whose ``builds`` read
+    (1, 0) where nvcc compiled it and (0, 1) where ``build/`` held it."""
+    from repro_torch.sim import engine
+    init = engine.make_init(cfg, device=device)
+    roll = engine.make_rollout(cfg, 1)
+    with spans.recording() as rec:
+        state = init(params)
+        roll(params, state)
+    if state.queue.device.type == "cuda":
+        torch.cuda.synchronize(state.queue.device)
+    return state, stage_rows(rec, root=None)
 
 
 def format_stage_table(rows: List[Dict[str, object]]) -> str:
-    """Fixed-width stage-cost table; ``device_ms`` reads "-" off the card,
-    ``launches`` are those of kernels #1 / #2 / #3 a call."""
-    name_w = max([len("stage")] + [len(r["stage"]) for r in rows]) + 2
-    out = ["stage".ljust(name_w) + "   wall_ms      pct     dot_GFLOP"
-           + "    dot_MB  device_ms  launches #1/#2/#3"]
-    out.append("-" * (name_w + 74))
+    """Fixed-width table of ``stage_rows``: each span indented by its
+    depth, its calls, host and self ms, share of the roots, launches of
+    kernels #1 / #2 / #3 / #3's shift update (``s_project``), rounds /
+    steps, and kernel builds compiled / found built."""
+    name_w = max([len("stage")] + [2 * r["depth"] + len(r["stage"])
+                                   for r in rows]) + 2
+    head = ("stage".ljust(name_w) + "calls   host_ms   self_ms"
+            "     pct  #1/#2/#3/sp  rounds/steps  built/cached")
+    out = [head, "-" * len(head)]
     for r in rows:
-        dev = "-" if r.get("device_ms") is None else f"{r['device_ms']:.2f}"
-        launches = "/".join(str(x) for x in r.get("launches", ()))
-        out.append(r["stage"].ljust(name_w)
-                   + f"{r['wall_ms']:9.2f}  {r['pct']:6.1f}%  "
-                   + f"{r['dot_flops'] / 1e9:12.3f}  "
-                   + f"{r['dot_bytes'] / 1e6:8.2f}  {dev:>9}  "
-                   + f"{launches:>17}")
+        out.append(((" " * (2 * r["depth"]) + r["stage"]).ljust(name_w)
+                    + f"{r['calls']:5d} {r['host_ms']:9.2f}"
+                    + f" {r['self_ms']:9.2f} {r['pct']:6.1f}%"
+                    + f"  {'/'.join(str(x) for x in r['launches']):>11}"
+                    + f"  {r['rounds']:>5}/{r['steps']:<6}"
+                    + f"  {'/'.join(str(x) for x in r['builds']):>12}"
+                    ).rstrip())
     return "\n".join(out)
 
 
 __all__ = [
     "DayTelemetry", "day_telemetry", "mape", "bias", "coverage",
     "level_drift", "telemetry_records", "write_jsonl", "read_jsonl",
-    "profile_stages", "format_stage_table", "TRACE_FIELDS",
+    "stage_rows", "profile_stages", "profile_setup", "format_stage_table",
+    "TRACE_FIELDS",
 ]

@@ -25,8 +25,8 @@ Tolerances:
 The port's own contract: a batch's telemetry rollout equals its rollouts
 run alone (``rollout_sequential``), bit for bit. That test and the stage
 profiler's run the day with each PGD epoch cut to 2 steps (``short_epochs``:
-neither batching nor the profiler depends on the step count; the full day
-takes ~4 s a call on a CPU, and the profiler calls each stage thrice).
+neither batching nor the span-based stage rows depend on the step count;
+the full day takes ~4 s a call on a CPU).
 
 ``-s`` prints the measured gaps:
 
@@ -351,80 +351,61 @@ def test_batched_telemetry_equals_per_rollout(short_epochs, kw):
 
 
 def test_profile_stages_rows_on_the_cpu(short_epochs):
-    """The stage list and row schema of the reference, plus ``device_ms``
-    (None off the card) and the launches of kernels #1-#3 (none on the
-    CPU); the stage shares sum to 100% and the table renders."""
+    """The span-based rows of one real paper day: the day's row first at
+    100%, then each stage span under it and the optimize stage's problem,
+    shift, solve and rounds; the stage shares and the day's self share sum
+    to 100%; no launches of kernels #1-#3 on the CPU; the table renders."""
     cfg = tsim.SimConfig(n_clusters=4, n_campuses=2, n_zones=2,
                          hist_days=14)
     params = tsim.build_batch(cfg, tsim.default_library(2)[:1], [0], 2,
                               device="cpu")
     state = tsim.make_init(cfg, device="cpu")(params)
-    rows = tsim.profile_stages(cfg.stage_config(), params, state, reps=1)
+    rows = tsim.profile_stages(cfg.stage_config(), params, state)
     assert [r["stage"] for r in rows] == [
-        "power_fit", "forecast", "carbon", "optimize", "observe",
-        "day_step"]
+        "day", "power", "forecast", "carbon", "optimize", "problem",
+        "shift", "solve_vcc", "round", "observe", "slo", "carry"]
+    assert rows[8]["path"] == "day/optimize/solve_vcc/round"
     for r in rows:
-        assert {"stage", "wall_ms", "pct", "dot_flops", "dot_bytes",
-                "device_ms", "launches"} == set(r)
-        assert r["wall_ms"] > 0.0 and r["pct"] >= 0.0
-        assert r["device_ms"] is None and r["launches"] == (0, 0, 0)
-        assert r["dot_flops"] >= 0 and r["dot_bytes"] >= 0
-    stage_pct = sum(r["pct"] for r in rows if r["stage"] != "day_step")
+        assert {"path", "stage", "depth", "calls", "host_ms", "self_ms",
+                "pct", "launches", "sizes", "rounds", "steps",
+                "builds"} == set(r)
+        assert r["host_ms"] > 0.0 and 0.0 <= r["self_ms"] <= r["host_ms"]
+        assert r["launches"] == (0, 0, 0, 0) and r["sizes"] == {}
+    by = {r["stage"]: r for r in rows}
+    assert by["round"]["calls"] == 20 and by["solve_vcc"]["rounds"] == 20
+    assert by["solve_vcc"]["steps"] == 20 * 2
+    stage_pct = sum(r["pct"] for r in rows if r["depth"] == 1) \
+        + 100.0 * by["day"]["self_ms"] / by["day"]["host_ms"]
     assert abs(stage_pct - 100.0) < 1e-6
     table = tsim.format_stage_table(rows)
-    assert "optimize" in table and "wall_ms" in table
-    assert "device_ms" in table
+    assert "optimize" in table and "host_ms" in table
+    assert "#1/#2/#3/sp" in table
     print(table)
 
 
 def test_profile_stages_reads_the_streaming_forecast(monkeypatch,
                                                      short_epochs):
-    """A streaming state profiles ``forecast_stage_streaming`` (the rescan
-    windows are zero-length stubs there); the rows' timing is stubbed
-    out, so only the stage functions' own dispatch runs."""
+    """A streaming state's day runs ``forecast_stage_streaming`` inside
+    its ``forecast`` span (the rescan windows are zero-length stubs there;
+    the rescan forecast is not called)."""
     cfg = tsim.SimConfig(n_clusters=3, n_campuses=1, n_zones=1,
                          hist_days=8, streaming=True)
     params = tsim.build_batch(cfg, [tsim.Scenario("baseline")], [1], 1,
                               device="cpu")
     state = tsim.make_init(cfg, device="cpu")(params)
-    timed = {}
+    called = []
+    streaming = stages.forecast_stage_streaming
 
-    def stub(fn, args, reps, on_card):
-        timed[fn] = args
-        return {"wall_ms": 1.0, "device_ms": None, "dot_flops": 0,
-                "dot_bytes": 0, "launches": (0, 0, 0)}
+    def spy(pred, day, gamma):
+        called.append(day)
+        return streaming(pred, day, gamma)
 
-    monkeypatch.setattr(tel, "_time_stage", stub)
-    rows = tsim.profile_stages(cfg.stage_config(), params, state, reps=1)
-    assert [r["stage"] for r in rows][1] == "forecast"
-    forecast_fn, args = list(timed.items())[1]
-    assert len(args) == 2 and args[0] is state.day
-    fc = forecast_fn(*args)
-    want = stages.forecast_stage_streaming(state.pred, state.day,
-                                           params.gamma)
-    for k in want:
-        assert torch.equal(fc[k], want[k]), k
+    def rescan(*args):
+        raise AssertionError("the rescan forecast ran on a streaming state")
 
-
-def test_dot_counter_counts_what_flop_counter_mode_counts():
-    """``DotCounter``'s FLOPs are ``FlopCounterMode``'s on matmul-family
-    ops, and its bytes those ops' operands and results; other ops count
-    nothing."""
-    from torch.utils.flop_counter import FlopCounterMode
-    g = torch.Generator().manual_seed(0)
-    a, b = torch.rand(3, 4, generator=g), torch.rand(4, 5, generator=g)
-    x, y = torch.rand(2, 3, 4, generator=g), torch.rand(2, 4, 6,
-                                                        generator=g)
-
-    def fn():
-        return (a @ b).sum() + torch.bmm(x, y).exp().sum() \
-            + torch.addmm(torch.zeros(3, 5), a, b).sum()
-
-    with FlopCounterMode(display=False) as want:
-        fn()
-    with tel.DotCounter() as got:
-        out = fn()
-    assert got.flops == want.get_total_flops() == 2 * (60 + 144 + 60)
-    assert got.nbytes == 4 * ((12 + 20 + 15) + (24 + 48 + 36)
-                              + (15 + 12 + 20 + 15))
-    assert torch.equal(out, fn())
+    monkeypatch.setattr(stages, "forecast_stage_streaming", spy)
+    monkeypatch.setattr(stages, "forecast_stage", rescan)
+    rows = tsim.profile_stages(cfg.stage_config(), params, state)
+    assert [r["stage"] for r in rows][:3] == ["day", "power", "forecast"]
+    assert len(called) == 1 and called[0] is state.day
+    assert rows[2]["calls"] == 1 and rows[2]["host_ms"] > 0.0
